@@ -1,0 +1,189 @@
+"""Fused decode attention + per-slot adapter delta of the o-projection.
+
+Replaces the TPU kernels ``kernels/fused_decode.py::fused_decode_lora`` and
+``fused_decode_jd``.  On the TPU one kernel does it all, because its grid
+runs the kv-heads in order and a scratch accumulator carries the rank-r
+shrink from one head to the next.  On the H100 blocks run in parallel and
+in no order, so the work is two launches with no atomics:
+
+1. ``csrc/decode_attention.cu`` in a shrink mode: one block per
+   (b, kv-head) runs the same attention as :func:`flash_decode` (so ``out``
+   is bit-identical with it), then contracts that head's f32 normalised
+   output with its slice of ``A[ids[b]]`` (LoRA) or ``V[cluster_of[ids[b]]]``
+   (JD), times the rank scale, into a (B, Kv, r) f32 partial;
+2. ``csrc/fused_expand.cu``: one block per (b, 256 output channels) sums
+   the partials in head order, applies ``Sigma[ids[b]]`` (JD: diag or
+   full), expands through ``B[ids[b]]`` or ``U[cid]`` and applies the
+   per-channel output scale.
+
+What bounds it on an H100 is memory: the K/V prefix, plus the adapter
+slices (a few hundred KB per layer at mistral-7b's width); the partial
+round trip is B*Kv*r floats.  Banks are bf16, f32 or int8 with their
+scales; fp banks get scales of ones, as in the JAX wrappers, so one body
+serves both precisions.
+
+``delta`` uses the f32 attention output, as the TPU kernel does, while the
+plain versions (``ref.fused_decode_*_ref``) use the bf16-rounded ``out``:
+the two differ by about one bf16 rounding of ``out`` times ||A||.
+
+A CPU tensor goes to the plain version; a CUDA tensor launches the kernels
+or raises.  ``ids`` (and ``cluster_of``) must index their banks.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from . import _build
+from . import ref
+from .flash_decode import check_attention_args
+
+LAUNCHES_LORA = 0        # kernel launches (two per call) since the last reset
+LAUNCHES_JD = 0
+MAX_RANK = 128
+_ONES: Dict[Tuple, torch.Tensor] = {}
+
+
+def _ones(shape, device) -> torch.Tensor:
+    key = (tuple(shape), str(device))
+    if key not in _ONES:
+        _ONES[key] = torch.ones(shape, dtype=torch.float32, device=device)
+    return _ONES[key]
+
+
+def _check_bank(name: str, w: torch.Tensor, shape, device) -> None:
+    if tuple(w.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(w.shape)}, "
+                         f"expected {tuple(shape)}")
+    if w.device != device or not w.is_contiguous():
+        raise ValueError(f"{name} must be contiguous on {device}")
+    _build.dtype_code(w.dtype)
+
+
+def _check_scale(name: str, s: torch.Tensor, shape, device) -> None:
+    _check_bank(name, s, shape, device)
+    if s.dtype != torch.float32:
+        raise TypeError(f"{name} must be f32")
+
+
+def _check_ids(name: str, t: torch.Tensor, n: int, device) -> None:
+    if t.dtype != torch.int32 or t.shape != (n,) or t.device != device \
+            or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous ({n},) int32 tensor "
+                         f"on {device}")
+
+
+def _attn_shrink(q, k, v, kv_len, ids, cluster_of, bank, bank_scale, r,
+                 dims):
+    B, H, Kv, hd, S = dims
+    out = torch.empty_like(q)
+    partial = torch.empty((B, Kv, r), dtype=torch.float32, device=q.device)
+    err = _build.lib().fused_attn_shrink_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
+        ids.data_ptr(), None if cluster_of is None else cluster_of.data_ptr(),
+        bank.data_ptr(), _build.dtype_code(bank.dtype), bank_scale.data_ptr(),
+        r, out.data_ptr(), partial.data_ptr(), B, H, Kv, hd, S,
+        k.stride(0), k.stride(1), v.stride(0), v.stride(1), hd ** -0.5,
+        _build.dtype_code(q.dtype), _build.dtype_code(k.dtype),
+        _build.stream_ptr(q.device))
+    _build.check(err, "fused_attn_shrink")
+    return out, partial
+
+
+def _expand(partial, ids, cluster_of, sigma, w, w_scale, d_out):
+    B, Kv, r = partial.shape
+    delta = torch.empty((B, d_out), dtype=torch.float32,
+                        device=partial.device)
+    err = _build.lib().fused_expand_launch(
+        partial.data_ptr(), ids.data_ptr(),
+        None if cluster_of is None else cluster_of.data_ptr(),
+        None if sigma is None else sigma.data_ptr(),
+        0 if sigma is None else _build.dtype_code(sigma.dtype),
+        int(sigma is not None and sigma.ndim == 3),
+        w.data_ptr(), _build.dtype_code(w.dtype), w_scale.data_ptr(),
+        delta.data_ptr(), B, Kv, r, d_out, _build.stream_ptr(partial.device))
+    _build.check(err, "fused_expand")
+    return delta
+
+
+def fused_decode_lora(q, k, v, kv_len, ids, A, B,
+                      a_scale: Optional[torch.Tensor] = None,
+                      b_scale: Optional[torch.Tensor] = None):
+    """Fused decode attention + raw-LoRA output delta.
+
+    q: (B, H, hd); k/v: (B, S, Kv, hd) (row-contiguous views allowed);
+    kv_len/ids: (B,) int32; A: (n, r, H*hd) fp or int8 with a_scale
+    (n, r, 1); B: (n, d_out, r) fp or int8 with b_scale (n, d_out, 1).
+    Returns (out (B, H, hd), delta (B, d_out) f32), delta un-scaled by the
+    LoRA ``scaling``."""
+    global LAUNCHES_LORA
+    if q.device.type == "cpu":
+        return ref.fused_decode_lora_ref(q, k, v, kv_len, ids, A, B,
+                                         a_scale, b_scale)
+    dims = check_attention_args(q, k, v, kv_len)
+    Bt, H, Kv, hd, S = dims
+    n, r, d_attn = A.shape
+    d_out = B.shape[1]
+    dev = q.device
+    if d_attn != H * hd:
+        raise ValueError(f"A maps {d_attn} dims, attention makes {H * hd}")
+    if r > MAX_RANK:
+        raise ValueError(f"rank {r} > {MAX_RANK}")
+    a_scale = _ones((n, r, 1), dev) if a_scale is None else a_scale
+    b_scale = _ones((n, d_out, 1), dev) if b_scale is None else b_scale
+    _check_bank("A", A, (n, r, d_attn), dev)
+    _check_bank("B", B, (n, d_out, r), dev)
+    _check_scale("a_scale", a_scale, (n, r, 1), dev)
+    _check_scale("b_scale", b_scale, (n, d_out, 1), dev)
+    _check_ids("ids", ids, Bt, dev)
+    out, partial = _attn_shrink(q, k, v, kv_len, ids, None, A, a_scale, r,
+                                dims)
+    LAUNCHES_LORA += 1
+    delta = _expand(partial, ids, None, None, B, b_scale, d_out)
+    LAUNCHES_LORA += 1
+    return out, delta
+
+
+def fused_decode_jd(q, k, v, kv_len, ids, U, V, sigma, cluster_of,
+                    u_scale: Optional[torch.Tensor] = None,
+                    v_scale: Optional[torch.Tensor] = None):
+    """Fused decode attention + compressed shared-basis (jd) output delta.
+
+    U: (k, d_out, r) / V: (k, H*hd, r) fp or int8 with u_scale (k, d_out, 1)
+    / v_scale (k, 1, r); sigma: per-adapter (n, r) diag or (n, r, r) full,
+    bf16 or f32; cluster_of: (n,) int32.  Returns (out (B, H, hd),
+    delta (B, d_out) f32)."""
+    global LAUNCHES_JD
+    if q.device.type == "cpu":
+        return ref.fused_decode_jd_ref(q, k, v, kv_len, ids, U, V, sigma,
+                                       cluster_of, u_scale, v_scale)
+    dims = check_attention_args(q, k, v, kv_len)
+    Bt, H, Kv, hd, S = dims
+    kcl, d_attn, r = V.shape
+    d_out = U.shape[1]
+    n = sigma.shape[0]
+    dev = q.device
+    if d_attn != H * hd:
+        raise ValueError(f"V maps {d_attn} dims, attention makes {H * hd}")
+    if r > MAX_RANK:
+        raise ValueError(f"rank {r} > {MAX_RANK}")
+    if sigma.shape not in ((n, r), (n, r, r)):
+        raise ValueError(f"sigma must be ({n}, {r}) or ({n}, {r}, {r})")
+    if sigma.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError("sigma must be f32 or bf16 (dequantize int8 first)")
+    u_scale = _ones((kcl, d_out, 1), dev) if u_scale is None else u_scale
+    v_scale = _ones((kcl, 1, r), dev) if v_scale is None else v_scale
+    _check_bank("U", U, (kcl, d_out, r), dev)
+    _check_bank("V", V, (kcl, d_attn, r), dev)
+    _check_bank("sigma", sigma, tuple(sigma.shape), dev)
+    _check_scale("u_scale", u_scale, (kcl, d_out, 1), dev)
+    _check_scale("v_scale", v_scale, (kcl, 1, r), dev)
+    _check_ids("ids", ids, Bt, dev)
+    _check_ids("cluster_of", cluster_of, n, dev)
+    out, partial = _attn_shrink(q, k, v, kv_len, ids, cluster_of, V, v_scale,
+                                r, dims)
+    LAUNCHES_JD += 1
+    delta = _expand(partial, ids, cluster_of, sigma, U, u_scale, d_out)
+    LAUNCHES_JD += 1
+    return out, delta
