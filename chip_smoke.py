@@ -4,9 +4,9 @@
 
 Phases (any failure ends the script with a non-zero exit code):
 
-1. build: compile the four Hopper kernels from ``src/repro_torch/kernels/
-   csrc`` with nvcc for sm_90a and print ptxas' register, shared-memory
-   and spill lines;
+1. build: compile the Hopper kernels from ``src/repro_torch/kernels/
+   csrc`` (one nvcc per source, all started together) for sm_90a and
+   print ptxas' register, shared-memory and spill lines;
 2. kernels: run each kernel at the main path's shapes (mistral-7b: B 8,
    H 32, Kv 8, hd 128, a 128-token bucket of a 160-token cache, rank 16,
    d_out 4096, 16 adapters, one cluster) in bf16, the fused kernels also
@@ -17,7 +17,13 @@ Phases (any failure ends the script with a non-zero exit code):
    adapter_quantize equals its plain version exactly; time kernel, plain
    version and, for attention, ``scaled_dot_product_attention`` as a
    yardstick, with CUDA events, and the kernels' own device time per call
-   with ``torch.profiler``;
+   with ``torch.profiler``.  Then ``adapter_dequantize`` (exact, on the
+   fused_q8 path's per-layer banks) and the grouped kernels
+   (``sgmv_shrink``, ``sgmv_expand``, ``sigma_bmm``, ``jd_shrink_scale``)
+   at ``tests/test_kernels.py``'s sweep shapes and at mistral-7b's width
+   (4096 tokens: 32 sequences of 128 on their own adapters of 1000, and
+   32 decode tokens), each against its plain version, timed beside one
+   ``torch.bmm`` over the tiles where there is one;
 3. parity: a reduced model (2 layers, d 64, 4 heads over 2 KV heads, so
    the expand kernel sums partials across heads) in f32, with an f32 KV
    cache, decoding through the fused kernels on the card against the
@@ -27,7 +33,15 @@ Phases (any failure ends the script with a non-zero exit code):
    one fused run without an o-projection adapter (plain flash_decode
    attention); every request must finish and every kernel's launch count
    must rise.  The counts are zeroed just before this phase and read just
-   after it.
+   after it;
+5. compress_apply: ``repro_torch.launch.compress_apply.run`` at
+   mistral-7b's q-projection width (4096 -> 4096, rank 16) on 1000
+   random bf16 adapters: clustered JD-Full (QR iteration, 8 clusters) and
+   JD-Diag compression, then ``ops.lora_apply`` / ``ops.jd_apply`` on a
+   4096-token prefill batch and a 32-token decode batch; every output is
+   held against its plain chain on the card, and the compressed deltas'
+   distance from the uncompressed ones against the reconstruction error.
+   The grouped kernels' counts are zeroed just before and read just after.
 
 The last lines are the kernel names, the card's name and power limit, one
 JSON object with each kernel's numbers, and the ok line.
@@ -64,7 +78,27 @@ KERNELS = {
     "adapter_quantize": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/adapter_quant.cu",
         replaces="src/repro/kernels/adapter_quant.py:71"),
+    "adapter_dequantize": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/adapter_quant.cu",
+        replaces="src/repro/kernels/adapter_quant.py:112"),
+    "sgmv_shrink": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/sgmv.cu"
+        " + src/repro_torch/kernels/csrc/sgmv.cuh",
+        replaces="src/repro/kernels/sgmv.py:81"),
+    "sgmv_expand": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/sgmv.cu",
+        replaces="src/repro/kernels/sgmv.py:118"),
+    "sigma_bmm": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/sgmv.cu",
+        replaces="src/repro/kernels/sgmv.py:151"),
+    "jd_shrink_scale": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/jd_apply.cu"
+        " + src/repro_torch/kernels/csrc/sgmv.cuh",
+        replaces="src/repro/kernels/jd_apply.py:50"),
 }
+# compress_apply: mistral-7b's q projection, 1000 adapters, 32 sequences
+# of 128 prefill tokens (and one decode token each), 8 clusters, tile 128
+CA_ADAPTERS, CA_SEQS, CA_SEQ_LEN, CA_CLUSTERS, TILE = 1000, 32, 128, 8, 128
 
 
 def log(msg: str) -> None:
@@ -196,6 +230,150 @@ def phase_kernels(dev):
         library_ms=None,
         bound=checks.bound_ms(checks.quant_bytes(a_bank, -1),
                               3 * a_bank.numel()))
+    rows.update(grouped_kernel_rows(dev, gen))
+    return rows
+
+
+def grouped_kernel_rows(dev, gen):
+    """adapter_dequantize and the grouped kernels: checks at the sweep
+    shapes and at full width, and the timed rows at the main paths'
+    shapes."""
+    from repro_torch.kernels import checks, ref
+    from repro_torch.kernels.adapter_quant import (adapter_dequantize,
+                                                   adapter_quantize)
+    from repro_torch.kernels.jd_apply import jd_shrink_scale
+    from repro_torch.kernels.sgmv import sgmv_expand, sgmv_shrink, sigma_bmm
+    bf16, f32 = torch.bfloat16, torch.float32
+    rows = {}
+
+    def randn(shape, std=1.0, dtype=f32):
+        return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
+
+    # dequantize: the fused_q8 path's per-layer q/k/v banks and a full Sigma
+    deq = [adapter_quantize(randn((N_ADAPTERS, R, H * HD), 0.02, bf16)),
+           adapter_quantize(randn((N_ADAPTERS, D_OUT, R), 0.02, bf16)),
+           adapter_quantize(randn((1, H * HD, R), 0.02, bf16), axis=-2),
+           adapter_quantize(randn((N_ADAPTERS, R, R), 0.1, bf16)),
+           adapter_quantize(randn((3, 50, 70)), axis=-2)]
+    for q, sc in deq:
+        for od in (f32, bf16):
+            checks.check_adapter_dequantize(q, sc, od)
+    log(f"[kernels] adapter_dequantize exact on {len(deq)} banks, f32 and "
+        f"bf16 out")
+    q, sc = deq[0]
+    rows["adapter_dequantize"] = dict(
+        max_abs_err=0.0, tolerance="exact",
+        ms=checks.cuda_ms(lambda: adapter_dequantize(q, sc)),
+        device_ms=checks.device_ms(lambda: adapter_dequantize(q, sc),
+                                   [checks.DEQUANT_KERNEL]),
+        plain_ms=checks.cuda_ms(lambda: ref.adapter_dequant_ref(q, sc)),
+        library_ms=None,
+        bound=checks.bound_ms(checks.dequant_bytes(q, sc, f32), q.numel()))
+
+    # tests/test_kernels.py's sweeps
+    worst = {k: 0.0 for k in ("sgmv_shrink", "sgmv_expand", "sigma_bmm",
+                              "jd_shrink_scale")}
+    for dtype in (bf16, f32):
+        for T, d_in, d_out, n, r, tile in checks.SGMV_SWEEP:
+            case = checks.sweep_case(T, d_in, n, tile, dtype, gen, dev)
+            res = checks.check_sgmv_shrink(case, randn((n, r, d_in), 1 / 8,
+                                                       dtype))
+            worst["sgmv_shrink"] = max(worst["sgmv_shrink"],
+                                       res["max_abs_err"])
+            res = checks.check_sgmv_expand(case, res["out"].to(dtype), randn(
+                (n, d_out, r), 1 / 4, dtype))
+            worst["sgmv_expand"] = max(worst["sgmv_expand"],
+                                       res["max_abs_err"])
+        for r in (4, 16):
+            case = checks.sweep_case(48, r, 4, 8, dtype, gen, dev)
+            res = checks.check_sigma_bmm(case, case["x"],
+                                         randn((4, r, r), 1 / 4))
+            worst["sigma_bmm"] = max(worst["sigma_bmm"], res["max_abs_err"])
+    for diag in (True, False):
+        for kcl in (1, 3):
+            case = checks.sweep_case(64, 192, 6, 8, bf16, gen, dev)
+            V, U = randn((kcl, 192, 8), 1 / 8, bf16), randn((kcl, 128, 8),
+                                                            1 / 4, bf16)
+            cluster_of = (torch.arange(6, device=dev) % kcl).to(torch.int32)
+            sig = randn((6, 8)).abs() if diag else randn((6, 8, 8), 1 / 4)
+            tile_cids = cluster_of[case["tile_ids"].long()]
+            sig_tok = sig[case["ids"].long()].to(bf16) if diag else None
+            res = checks.check_jd_shrink_scale(case, V, sig_tok, tile_cids,
+                                               cluster_of)
+            worst["jd_shrink_scale"] = max(worst["jd_shrink_scale"],
+                                           res["max_abs_err"])
+            t = res["out"].to(bf16)
+            if not diag:
+                t = checks.check_sigma_bmm(case, t, sig)["out"]
+            cc = dict(case, ids=cluster_of[case["ids"].long()],
+                      tile_ids=tile_cids)
+            checks.check_sgmv_expand(cc, t, U)
+    log(f"[kernels] grouped sweeps ok, max errors "
+        f"{json.dumps({k: float(f'{v:.3e}') for k, v in worst.items()})} "
+        f"({checks.GROUPED_TOL})")
+
+    # full width: mistral-7b's q projection, 1000 adapters, rank 16
+    n, r, d = CA_ADAPTERS, R, D_OUT
+    adapters = torch.randperm(n, generator=gen, device=dev)[:CA_SEQS]
+    A, Bk = randn((n, r, d), 0.02, bf16), randn((n, d, r), 0.02, bf16)
+    U, V = randn((CA_CLUSTERS, d, r), 0.02), randn((CA_CLUSTERS, d, r), 0.02)
+    sig_full, sig_diag = randn((n, r, r), 0.1), randn((n, r), 0.1)
+    cluster_of = torch.randint(0, CA_CLUSTERS, (n,), generator=gen,
+                               device=dev, dtype=torch.int32)
+    cases = {}
+    for bname, per in (("prefill", CA_SEQ_LEN), ("decode", 1)):
+        ids = adapters.repeat_interleave(per).to(torch.int32)
+        case = checks.grouped_case(ids, n, d, TILE, bf16, gen, dev)
+        tile_cids = cluster_of[case["tile_ids"].long()]
+        s = checks.check_sgmv_shrink(case, A)
+        e = checks.check_sgmv_expand(case, s["out"].to(bf16), Bk)
+        sig_tok = sig_diag[case["ids"].long()].to(bf16)
+        j = checks.check_jd_shrink_scale(case, V, sig_tok, tile_cids,
+                                         cluster_of)
+        b = checks.check_sigma_bmm(case, j["out"].to(bf16), sig_full)
+        cases[bname] = (case, tile_cids, sig_tok, s, e, j, b)
+        log(f"[kernels] grouped {bname} at full width ok ({ids.numel()} "
+            f"tokens, {case['x'].shape[0]} rows): shrink "
+            f"{s['max_abs_err']:.3e}, expand {e['max_abs_err']:.3e}, "
+            f"jd_shrink_scale {j['max_abs_err']:.3e}, sigma_bmm "
+            f"{b['max_abs_err']:.3e}")
+
+    # timed at the prefill batch's shapes (T_pad 4096, tile 128)
+    case, tile_cids, sig_tok, s, e, j, b = cases["prefill"]
+    x, ids, tid = case["x"], case["ids"], case["tile_ids"]
+    t = s["out"].to(bf16)
+    cids = cluster_of.long()[ids.long()]
+    T = x.shape[0]
+    specs = {
+        "sgmv_shrink": (
+            s, lambda: sgmv_shrink(x, A, tid), checks.SHRINK_KERNEL,
+            lambda: ref.sgmv_shrink_ref(x.float(), A, ids),
+            checks.library_grouped(x, A, tid, transpose=True),
+            checks.shrink_bytes(case, A, tid, r), 2 * T * d * r),
+        "sgmv_expand": (
+            e, lambda: sgmv_expand(t, Bk, tid), checks.SGMV_EXPAND_KERNEL,
+            lambda: ref.sgmv_expand_ref(t, Bk, ids),
+            checks.library_grouped(t, Bk, tid, transpose=True),
+            checks.expand_bytes(t, Bk, tid), 2 * T * d * r),
+        "sigma_bmm": (
+            b, lambda: sigma_bmm(t, sig_full, tid), checks.SIGMA_KERNEL,
+            lambda: ref.sigma_bmm_ref(t, sig_full, ids),
+            checks.library_grouped(t, sig_full, tid, transpose=False),
+            checks.sigma_bytes(t, sig_full, tid), 2 * T * r * r),
+        "jd_shrink_scale": (
+            j, lambda: jd_shrink_scale(x, V, sig_tok, tile_cids),
+            checks.SHRINK_KERNEL,
+            lambda: ref.jd_shrink_scale_ref(x, V, sig_tok, cids), None,
+            checks.shrink_bytes(case, V, tile_cids, r, (sig_tok,)),
+            2 * T * d * r + T * r),
+    }
+    for name, (res, fn, kname, plain, lib, nbytes, flops) in specs.items():
+        rows[name] = dict(
+            max_abs_err=res["max_abs_err"], tolerance=res["tolerance"],
+            ms=checks.cuda_ms(fn), device_ms=checks.device_ms(fn, [kname]),
+            plain_ms=checks.cuda_ms(plain, iters=10),
+            library_ms=None if lib is None else checks.cuda_ms(lib),
+            bound=checks.bound_ms(nbytes, flops))
     return rows
 
 
@@ -264,7 +442,7 @@ def phase_serve(dev):
             ("lora", "fused", ("q", "k", "v"))]
     flash_decode.LAUNCHES = 0
     fused_decode.LAUNCHES_LORA = fused_decode.LAUNCHES_JD = 0
-    adapter_quant.LAUNCHES = 0
+    adapter_quant.LAUNCHES = adapter_quant.LAUNCHES_DEQUANT = 0
     results = []
     for mode, path, targets in runs:
         torch.cuda.reset_peak_memory_stats(dev)
@@ -293,12 +471,120 @@ def phase_serve(dev):
     launches = {"flash_decode": flash_decode.LAUNCHES,
                 "fused_decode_lora": fused_decode.LAUNCHES_LORA,
                 "fused_decode_jd": fused_decode.LAUNCHES_JD,
-                "adapter_quantize": adapter_quant.LAUNCHES}
+                "adapter_quantize": adapter_quant.LAUNCHES,
+                "adapter_dequantize": adapter_quant.LAUNCHES_DEQUANT}
     log("[serve] launches on the main path: " + json.dumps(launches)
         + ' (fused: an attention and an expand launch per layer per step);'
         ' reduced: [] (all 32 layers, full width)')
     for name, n in launches.items():
         assert n > 0, f"{name} was never launched on the main path"
+    return launches
+
+
+def phase_compress_apply(dev):
+    """The compress-then-apply path at mistral-7b's width through its entry
+    point, then its outputs against plain chains on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.cluster import clustered_reconstruction_errors
+    from repro_torch.core.jd import reconstruction_errors
+    from repro_torch.kernels import checks, jd_apply, ops, sgmv
+    from repro_torch.launch import compress_apply
+    cfg = get_config("mistral-7b")
+    sgmv.LAUNCHES_SHRINK = sgmv.LAUNCHES_EXPAND = sgmv.LAUNCHES_SIGMA = 0
+    jd_apply.LAUNCHES = 0
+    t0 = time.perf_counter()
+    assert (compress_apply.N_CLUSTERS, compress_apply.TILE) == (CA_CLUSTERS,
+                                                                TILE)
+    report, art = compress_apply.run(cfg, CA_ADAPTERS, CA_SEQS, CA_SEQ_LEN,
+                                     device=dev)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    launches = {"sgmv_shrink": sgmv.LAUNCHES_SHRINK,
+                "sgmv_expand": sgmv.LAUNCHES_EXPAND,
+                "sigma_bmm": sgmv.LAUNCHES_SIGMA,
+                "jd_shrink_scale": jd_apply.LAUNCHES}
+    log("[compress_apply] launches on the path: " + json.dumps(launches)
+        + f"; wall {wall:.1f} s")
+    for name, n in launches.items():
+        assert n > 0, f"{name} was never launched on the compress_apply path"
+
+    bank, bundles = art["bank"], art["bundles"]
+    A32, B32 = bank.A.float(), bank.B.float()
+    for (mode, bname), y in art["outputs"].items():
+        x, ids = art["batches"][bname]
+        assert y.shape == (ids.numel(), report["d_out"]), y.shape
+        assert y.dtype == x.dtype and bool(torch.isfinite(y).all())
+        a = bundles[mode].arrays
+        plain = (checks.lora_chain_plain(x, a["A"], a["B"], ids)
+                 if mode == "lora" else
+                 checks.jd_chain_plain(x, a["U"], a["V"], a["sigma"],
+                                       a["cluster_of"], ids))
+        err = checks.check_chain(f"{mode} {bname}", y, plain)
+        report["modes"][mode].setdefault("max_abs_err", {})[bname] = err
+    log(f"[compress_apply] every output within {checks.CHAIN_TOL} of its "
+        f"plain chain on the card")
+
+    # where an apply call's time goes: the device's own time per call, all
+    # of it and in the port's kernels, beside the CUDA-event time per call
+    port = [checks.SHRINK_KERNEL, checks.SGMV_EXPAND_KERNEL,
+            checks.SIGMA_KERNEL]
+    for mode, bundle in bundles.items():
+        a = bundle.arrays
+        row = report["modes"][mode]
+        for bname, (x, ids) in art["batches"].items():
+            if mode == "lora":
+                def fn():
+                    return ops.lora_apply(x, a["A"], a["B"], ids, tile=TILE)
+            else:
+                def fn():
+                    return ops.jd_apply(x, a["U"], a["V"], a["sigma"],
+                                        a["cluster_of"], ids, tile=TILE)
+            dev_all = checks.device_ms(fn, [""])
+            row.setdefault("device_ms", {})[bname] = dev_all
+            row.setdefault("port_kernels_device_ms", {})[bname] = \
+                checks.device_ms(fn, port)
+            row.setdefault("idle_share", {})[bname] = \
+                1.0 - dev_all / row["apply_ms"][bname]
+
+    # the compressed deltas sit as far from the uncompressed ones as the
+    # reconstruction error of the batch's adapters says (random tokens):
+    # JD-Diag as served; JD-Full with Sigma^T, since the kernels apply
+    # t @ Sigma, i.e. U Sigma^T V^T, where compression's Sigma_i is
+    # U^T B_i A_i V (the reference's convention, kept by the port)
+    for mode, res in art["results"].items():
+        errs = (clustered_reconstruction_errors(A32, B32, res)
+                if hasattr(res, "assign") else
+                reconstruction_errors(A32, B32, res))
+        a = bundles[mode].arrays
+        for bname, (x, ids) in art["batches"].items():
+            sel = torch.unique(ids.long())
+            want = float(errs["err_sq"][sel].sum()
+                         / errs["norms_sq"][sel].sum()) ** 0.5
+            sig = a["sigma"]
+            got = report["modes"][mode]["rel_diff_vs_lora"][bname]
+            if sig.ndim == 3:
+                y = ops.jd_apply(x, a["U"], a["V"],
+                                 sig.transpose(1, 2).contiguous(),
+                                 a["cluster_of"], ids, tile=TILE)
+                yl = art["outputs"][("lora", bname)].float()
+                got_t = float(torch.linalg.norm(y.float() - yl)
+                              / torch.linalg.norm(yl))
+                report["modes"][mode].setdefault(
+                    "rel_diff_vs_lora_sigma_t", {})[bname] = got_t
+            else:
+                got_t = got
+            report["modes"][mode].setdefault(
+                "rel_err_of_batch_adapters", {})[bname] = want
+            # 32 adapters' worth of random tokens: within 15% (decode: one
+            # token per adapter) of the expected distance
+            slack = 0.05 if bname == "prefill" else 0.15
+            assert abs(got_t - want) <= slack * want + 0.01, (
+                mode, bname, got_t, want)
+    for mode, row in report["modes"].items():
+        log("[compress_apply] " + json.dumps({"mode": mode, **row}))
+    for bname, row in report["batches"].items():
+        log("[compress_apply] batch " + json.dumps({"batch": bname, **row}))
+    log("[compress_apply] reduced: [] (1000 adapters, full width)")
     return launches
 
 
@@ -316,6 +602,7 @@ def main() -> int:
     rows = phase_kernels(dev)
     phase_parity(dev)
     launches = phase_serve(dev)
+    launches.update(phase_compress_apply(dev))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,

@@ -4,6 +4,10 @@ The JAX package's trees (parameters from ``models/param.py``, adapter
 bundles from ``launch/serve.py`` or ``core/collection.py``) become nested
 dicts of numpy arrays with ``np.asarray(leaf)``; :func:`to_torch` turns
 such a tree into tensors on one device with the same layouts, bit for bit.
+The compression containers (a ``LoRABank``, a ``JDResult`` or
+``ClusteredJD``, a ``ServingAdapterBundle``) cross the same way, field by
+field, into the port's types of ``core/``: the functions below read the
+fields with ``np.asarray`` and import nothing of the JAX package.
 
 bf16 arrives as ``ml_dtypes.bfloat16``, which ``torch.from_numpy``
 refuses; it crosses as its raw 16 bits (``view(np.uint16)``) and is
@@ -13,6 +17,10 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .core.cluster import ClusteredJD
+from .core.collection import LoRABank, ServingAdapterBundle
+from .core.jd import JDResult
 
 
 def array_to_tensor(a, device="cpu") -> torch.Tensor:
@@ -39,3 +47,29 @@ def tensor_to_array(t: torch.Tensor) -> np.ndarray:
     if t.dtype == torch.bfloat16:
         t = t.float()
     return t.numpy()
+
+
+def lora_bank(bank, device="cpu") -> LoRABank:
+    """A bank with fields ``A``, ``B``, ``ranks`` -> the port's LoRABank."""
+    return LoRABank(A=array_to_tensor(bank.A, device),
+                    B=array_to_tensor(bank.B, device),
+                    ranks=array_to_tensor(bank.ranks, device))
+
+
+def compressed_result(res, device="cpu"):
+    """A ``JDResult`` (U, V, sigma, diag) or ``ClusteredJD`` (with
+    ``assign``) -> the port's type of the same name."""
+    fields = {k: array_to_tensor(getattr(res, k), device)
+              for k in ("U", "V", "sigma")}
+    if hasattr(res, "assign"):
+        return ClusteredJD(assign=array_to_tensor(res.assign, device).to(
+            torch.int32), diag=bool(res.diag), **fields)
+    return JDResult(diag=bool(res.diag), **fields)
+
+
+def serving_bundle(bundle, device="cpu") -> ServingAdapterBundle:
+    """A ``ServingAdapterBundle`` -> the port's, arrays as tensors."""
+    return ServingAdapterBundle(
+        kind=bundle.kind, arrays=to_torch(dict(bundle.arrays), device),
+        param_bytes_shared=int(bundle.param_bytes_shared),
+        param_bytes_per_adapter=int(bundle.param_bytes_per_adapter))

@@ -50,6 +50,12 @@ SIGNATURES = {
     "fused_expand_launch": [_P, _P, _P, _P, _I, _I, _P, _I, _P, _P, _I, _I,
                             _I, _I, _P],
     "adapter_quant_launch": [_P, _I, _P, _P, _I64, _I, _I, _I, _P],
+    "adapter_dequant_launch": [_P, _P, _P, _I, _I64, _I, _I, _I, _P],
+    "sgmv_shrink_launch": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _P],
+    "sgmv_expand_launch": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _P],
+    "sigma_bmm_launch": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _P],
+    "jd_shrink_scale_launch": [_P, _I, _P, _I, _P, _P, _I, _P, _I, _I, _I,
+                               _I, _P],
 }
 
 

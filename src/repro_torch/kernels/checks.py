@@ -17,7 +17,21 @@ it states, and returns the worst error.  The tolerances:
   by one bf16 rounding of ``out`` carried through the adapter, about 1e-4
   at mistral-7b's width, and is what the CPU wrappers and the JAX parity
   tests use.)
-* ``adapter_quantize``: exact.
+* ``adapter_quantize`` and ``adapter_dequantize``: exact.
+* the grouped kernels (``sgmv_shrink``, ``sgmv_expand``, ``sigma_bmm``,
+  ``jd_shrink_scale``) against their per-row plain versions on the same
+  inputs: the same f32 products summed in another order, so
+  ``1e-5 * (1 + |ref|) + 2**-20 * M`` with M the contraction on absolute
+  values (``|x| @ |W|^T``): a sum of n products in two orders differs by
+  a few ``2**-24 * M`` (at d_in 4096 the first term alone failed, by
+  3.1e-5 on outputs of ~3); outputs in bf16 round once more,
+  ``2**-7 * |ref|`` in place of ``1e-5 * |ref|``.
+* the composed ``ops.lora_apply`` / ``ops.jd_apply`` against a plain chain
+  with the same casts between stages: ``2**-7 * |ref| + 2**-6 * M + 1e-5``,
+  M the last expand's contraction on absolute values (``|u| @ |W|^T``):
+  an f32 sum that lands on the other side of a bf16 rounding in an earlier
+  stage moves the output by up to 2**-8 of that stage's term, carried
+  through the expand.
 """
 from __future__ import annotations
 
@@ -26,15 +40,24 @@ from typing import Callable, Dict
 import torch
 
 from . import ref
-from .adapter_quant import adapter_quantize
+from .adapter_quant import adapter_dequantize, adapter_quantize
 from .flash_decode import flash_decode
 from .fused_decode import fused_decode_jd, fused_decode_lora
+from .jd_apply import jd_shrink_scale
+from .sgmv import sgmv_expand, sgmv_shrink, sigma_bmm
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA's data sheet
 F32_FLOPS = 67e12                # H100 SXM f32 outside the tensor cores
 # the __global__ functions of csrc/, as the profiler names them
 ATTN_KERNEL, EXPAND_KERNEL = "decode_attn_kernel", "fused_expand_kernel"
 QUANT_KERNELS = ("quant_rows_kernel", "quant_cols_kernel")
+DEQUANT_KERNEL = "dequant_kernel"
+# sgmv_shrink and jd_shrink_scale are instances of one template
+SHRINK_KERNEL = "grouped_shrink_kernel"
+SGMV_EXPAND_KERNEL, SIGMA_KERNEL = "sgmv_expand_kernel", "sigma_bmm_kernel"
+# tests/test_kernels.py's sweeps: (T, d_in, d_out, n, r, tile)
+SGMV_SWEEP = [(32, 128, 64, 3, 8, 8), (64, 256, 192, 5, 16, 8),
+              (128, 512, 256, 2, 32, 16), (16, 64, 128, 7, 4, 8)]
 
 
 def bound_ms(nbytes: float, flops: float):
@@ -280,3 +303,173 @@ def check_library_attention(case, out) -> float:
     lib = library_attention(case)()[:, :, 0]
     return _assert_close("scaled_dot_product_attention", lib, out,
                          0.02 * float(out.float().abs().max()))
+
+
+def check_adapter_dequantize(q: torch.Tensor, scale: torch.Tensor,
+                             out_dtype) -> Dict:
+    got = adapter_dequantize(q, scale, out_dtype=out_dtype)
+    want = ref.adapter_dequant_ref(q, scale, out_dtype)
+    if not torch.equal(got, want):
+        bad = int((got != want).sum())
+        raise AssertionError(f"adapter_dequantize differs from its plain "
+                             f"version in {bad} elements")
+    return {"max_abs_err": 0.0, "tolerance": "exact"}
+
+
+def dequant_bytes(q: torch.Tensor, scale: torch.Tensor, out_dtype) -> int:
+    return (q.numel() + 4 * scale.numel()
+            + q.numel() * torch.empty((), dtype=out_dtype).element_size())
+
+
+# -- grouped multi-adapter kernels -------------------------------------------
+
+
+def grouped_case(ids: torch.Tensor, n: int, d_in: int, tile: int, dtype,
+                 gen, device) -> Dict:
+    """Tokens with adapter ``ids``, grouped as ``ops`` groups them: x
+    (T_pad, d_in) in ``dtype``, per-row ``ids`` and per-tile
+    ``tile_ids``."""
+    perm, tile_ids, _ = ref.group_tokens_by_adapter(ids, n, tile)
+    x = _randn((ids.numel(), d_in), gen, device, dtype)
+    pl = perm.long()
+    return {"x": x[pl].contiguous(), "ids": ids[pl].contiguous(),
+            "tile_ids": tile_ids, "tile": tile}
+
+
+def sweep_case(T, d_in, n, tile, dtype, gen, device) -> Dict:
+    ids = torch.randint(0, n, (T,), generator=gen, device=gen.device,
+                        dtype=torch.int32).to(device)
+    return grouped_case(ids, n, d_in, tile, dtype, gen, device)
+
+
+GROUPED_TOL = ("f32 1e-5*(1+|ref|) + 2**-20*M, bf16 out 2**-7*|ref| + "
+               "1e-5 + 2**-20*M; M = |x| @ |W|^T")
+
+
+def _check_grouped(name, got, want, M) -> Dict:
+    """``M``: the same contraction on absolute values, in f32."""
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)} "
+                             f"against {want.dtype} {tuple(want.shape)}")
+    rel = 2.0 ** -7 if got.dtype == torch.bfloat16 else 1e-5
+    tol = rel * want.float().abs() + 1e-5 + 2.0 ** -20 * M
+    err = _assert_close(name, got, want, tol)
+    return {"max_abs_err": err, "tolerance": GROUPED_TOL, "out": got}
+
+
+def _abs(t: torch.Tensor) -> torch.Tensor:
+    return t.float().abs()
+
+
+def check_sgmv_shrink(case, A) -> Dict:
+    x, ids = case["x"], case["ids"]
+    got = sgmv_shrink(x, A, case["tile_ids"], block_t=case["tile"])
+    want = ref.sgmv_shrink_ref(x.float(), A, ids)
+    M = ref.sgmv_shrink_ref(_abs(x), _abs(A), ids)
+    return _check_grouped("sgmv_shrink", got, want, M)
+
+
+def check_sgmv_expand(case, t, B) -> Dict:
+    ids = case["ids"]
+    got = sgmv_expand(t, B, case["tile_ids"], block_t=case["tile"])
+    want = ref.sgmv_expand_ref(t, B, ids)
+    M = ref.sgmv_expand_ref(_abs(t), _abs(B), ids)
+    return _check_grouped("sgmv_expand", got, want, M)
+
+
+def check_sigma_bmm(case, t, sigma) -> Dict:
+    ids = case["ids"]
+    got = sigma_bmm(t, sigma, case["tile_ids"], block_t=case["tile"])
+    want = ref.sigma_bmm_ref(t, sigma, ids)
+    M = ref.sigma_bmm_ref(_abs(t), _abs(sigma), ids)
+    return _check_grouped("sigma_bmm", got, want, M)
+
+
+def check_jd_shrink_scale(case, V, sig_tok, tile_cids, cluster_of) -> Dict:
+    x = case["x"]
+    got = jd_shrink_scale(x, V, sig_tok, tile_cids, block_t=case["tile"])
+    cids = cluster_of.long()[case["ids"].long()]
+    want = ref.jd_shrink_scale_ref(x, V, sig_tok, cids)
+    M = ref.jd_shrink_scale_ref(_abs(x), _abs(V), None if sig_tok is None
+                                else _abs(sig_tok), cids)
+    return _check_grouped("jd_shrink_scale", got, want, M)
+
+
+def _nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _reached(bank: torch.Tensor, tile_ids: torch.Tensor) -> torch.Tensor:
+    """The slices of ``bank`` the tiles reach (each read once)."""
+    return bank[torch.unique(tile_ids.long())]
+
+
+def shrink_bytes(case, W, tile_ids, r: int, extra=()) -> int:
+    """x read, the bank slices reached, the per-tile ids and any per-row
+    extra input read once; the (T_pad, r) f32 output written."""
+    return (_nbytes(case["x"], _reached(W, tile_ids), tile_ids, *extra)
+            + 4 * case["x"].shape[0] * r)
+
+
+def expand_bytes(t, W, tile_ids) -> int:
+    T, d_out = t.shape[0], W.shape[1]
+    return (_nbytes(t, _reached(W, tile_ids), tile_ids)
+            + T * d_out * t.element_size())
+
+
+def sigma_bytes(t, sigma, tile_ids) -> int:
+    return 2 * _nbytes(t) + _nbytes(_reached(sigma, tile_ids), tile_ids)
+
+
+def library_grouped(a: torch.Tensor, W: torch.Tensor,
+                    tile_ids: torch.Tensor, transpose: bool
+                    ) -> Callable[[], torch.Tensor]:
+    """One ``torch.bmm`` over the tiles, as a yardstick only: ``a``
+    (T_pad, K) viewed as (tiles, bt, K) against the per-tile weights,
+    gathered beforehand (the gather is not timed).  ``transpose``: the
+    weights are stored (n, N, K) (A, B) rather than (n, K, N) (Sigma)."""
+    nt = tile_ids.shape[0]
+    w = W[tile_ids.long()]
+    w = w.transpose(1, 2) if transpose else w
+    w = w.to(a.dtype).contiguous()
+    a3 = a.reshape(nt, a.shape[0] // nt, a.shape[1])
+    return lambda: torch.bmm(a3, w)
+
+
+def _abs_contraction(u: torch.Tensor, W: torch.Tensor, rows: torch.Tensor
+                     ) -> torch.Tensor:
+    """M = |u| @ |W[rows]|^T per token: the expand's terms on absolute
+    values.  u: (T, r); W: (n, d_out, r)."""
+    return torch.einsum("tr,tor->to", u.float().abs(),
+                        W[rows.long()].float().abs())
+
+
+def lora_chain_plain(x, A, B, ids, scaling: float = 1.0):
+    """``ops.lora_apply``'s function with its casts: f32 shrink, the
+    rank-r intermediate rounded to x's dtype, expand.  Returns (y, M)."""
+    t = ref.sgmv_shrink_ref(x.float(), A, ids).to(x.dtype)
+    return (ref.sgmv_expand_ref(t, B, ids) * scaling,
+            _abs_contraction(t, B, ids) * abs(scaling))
+
+
+def jd_chain_plain(x, U, V, sigma, cluster_of, ids):
+    """``ops.jd_apply``'s function with its casts (``kernels/jd_apply.py``).
+    Returns (y, M)."""
+    cids = cluster_of.long()[ids.long()]
+    if sigma.ndim == 2:
+        t = ref.jd_shrink_scale_ref(x, V, sigma[ids.long()].to(x.dtype),
+                                    cids)
+    else:
+        t = ref.sigma_bmm_ref(ref.jd_shrink_scale_ref(x, V, None, cids).to(
+            x.dtype), sigma, ids)
+    t = t.to(x.dtype)
+    return ref.sgmv_expand_ref(t, U, cids), _abs_contraction(t, U, cids)
+
+
+CHAIN_TOL = "2**-7*|ref| + 2**-6*M + 1e-5, M = |u| @ |W|^T of the expand"
+
+
+def check_chain(name, got, plain) -> float:
+    want, M = plain
+    tol = 2.0 ** -7 * want.float().abs() + 2.0 ** -6 * M + 1e-5
+    return _assert_close(name, got, want, tol)

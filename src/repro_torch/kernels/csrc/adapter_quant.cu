@@ -76,7 +76,50 @@ __global__ void quant_cols_kernel(const void* __restrict__ w, int w_dtype,
   if (grp == 0) scale[(int64_t)n * C + j] = s;
 }
 
+// Dequantization, replacing kernels/adapter_quant.py::adapter_dequantize
+// (_dequant_kernel): out[n, i, j] = q[n, i, j] * scale (scale[n, i] for
+// rows, scale[n, j] for cols), one f32 multiply (__fmul_rn) and one
+// rounding to the output type, so it equals the plain version bit for bit.
+// Bound: memory, one read of q and the scales, one write of out (4 or 2
+// bytes per value).  A grid-stride loop, one element per thread per step,
+// consecutive threads on consecutive elements.
+#define DEQ_THREADS 256
+
+template <typename T>
+__global__ void __launch_bounds__(DEQ_THREADS) dequant_kernel(
+    const int8_t* __restrict__ q, const float* __restrict__ scale,
+    T* __restrict__ out, int64_t total, int R, int C, int rows) {
+  const int64_t stride = (int64_t)gridDim.x * DEQ_THREADS;
+  for (int64_t e = (int64_t)blockIdx.x * DEQ_THREADS + threadIdx.x;
+       e < total; e += stride) {
+    const int64_t n = e / ((int64_t)R * C);
+    const int64_t s = rows ? n * R + (e / C) % R : n * C + e % C;
+    out[e] = from_f<T>(__fmul_rn((float)q[e], scale[s]));
+  }
+}
+
 extern "C" {
+
+// q (N, R, C) int8, scale (N, R) [rows] or (N, C) [cols] f32
+//   -> out (N, R, C) f32 or bf16
+int adapter_dequant_launch(const int8_t* q, const float* scale, void* out,
+                           int out_dtype, int64_t N, int R, int C, int rows,
+                           void* stream) {
+  const int64_t total = N * R * C;
+  if (total == 0) return (int)cudaSuccess;
+  const int64_t want = (total + DEQ_THREADS - 1) / DEQ_THREADS;
+  const int blocks = (int)(want < 132 * 16 ? want : 132 * 16);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (out_dtype == DT_BF16)
+    dequant_kernel<__nv_bfloat16><<<blocks, DEQ_THREADS, 0, st>>>(
+        q, scale, static_cast<__nv_bfloat16*>(out), total, R, C, rows);
+  else if (out_dtype == DT_F32)
+    dequant_kernel<float><<<blocks, DEQ_THREADS, 0, st>>>(
+        q, scale, static_cast<float*>(out), total, R, C, rows);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
 
 // w (N, R, C) -> q (N, R, C) int8 and scale (N, R) [rows] or (N, C) [cols]
 int adapter_quant_launch(const void* w, int w_dtype, void* q, float* scale,

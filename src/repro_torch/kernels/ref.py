@@ -10,6 +10,7 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 NEG_INF = -1e30
@@ -114,3 +115,105 @@ def adapter_quant_ref(w: torch.Tensor, axis: int = -1
 def adapter_dequant_ref(q: torch.Tensor, scale: torch.Tensor,
                         out_dtype=torch.float32) -> torch.Tensor:
     return (q.float() * scale.float()).to(out_dtype)
+
+
+# -- token-flattened multi-adapter application ------------------------------
+#
+# The serving engine flattens a batch into (T, d) tokens, each with its own
+# adapter id.  These are the port of the token-level oracles of
+# ``kernels/ref.py``: every product in f32, the result in the input's type.
+
+
+def sgmv_shrink_ref(x: torch.Tensor, A: torch.Tensor, ids: torch.Tensor
+                    ) -> torch.Tensor:
+    """y[t] = A[ids[t]] @ x[t].   x: (T, d_in), A: (n, r, d_in) -> (T, r)."""
+    return torch.einsum("trd,td->tr", A[ids.long()].float(),
+                        x.float()).to(x.dtype)
+
+
+def sgmv_expand_ref(t: torch.Tensor, B: torch.Tensor, ids: torch.Tensor
+                    ) -> torch.Tensor:
+    """y[i] = B[ids[i]] @ t[i].   t: (T, r), B: (n, d_out, r) -> (T, d_out)."""
+    return torch.einsum("tor,tr->to", B[ids.long()].float(),
+                        t.float()).to(t.dtype)
+
+
+def lora_apply_ref(x, A, B, ids, scaling: float = 1.0) -> torch.Tensor:
+    """Uncompressed multi-LoRA delta: B[id] @ (A[id] @ x) per token."""
+    t = sgmv_shrink_ref(x, A, ids)
+    return sgmv_expand_ref(t, B, ids) * scaling
+
+
+def jd_apply_ref(x, U, V, sigma, cluster_of, ids) -> torch.Tensor:
+    """Compressed (JD) multi-LoRA delta per token.
+
+    x: (T, d_in); U: (k, d_out, r); V: (k, d_in, r);
+    sigma: (n, r, r) full or (n, r) diag; cluster_of: (n,); ids: (T,).
+    """
+    ids = ids.long()
+    cid = cluster_of.long()[ids]
+    t = torch.einsum("td,tdr->tr", x.float(), V[cid].float())
+    sig = sigma[ids].float()
+    if sig.ndim == 2:
+        t = t * sig
+    else:
+        t = torch.einsum("tr,trq->tq", t, sig)
+    return torch.einsum("tq,toq->to", t, U[cid].float()).to(x.dtype)
+
+
+def sigma_bmm_ref(t: torch.Tensor, sigma: torch.Tensor, ids: torch.Tensor
+                  ) -> torch.Tensor:
+    """t: (T, r) x sigma[ids]: per-token (r, r) matmul (JD-Full mid stage)."""
+    sig = sigma[ids.long()].float()
+    return torch.einsum("tr,trq->tq", t.float(), sig).to(t.dtype)
+
+
+def jd_shrink_scale_ref(x: torch.Tensor, V: torch.Tensor,
+                        sigma_tok: Optional[torch.Tensor],
+                        cids: torch.Tensor) -> torch.Tensor:
+    """(x[t] @ V[cids[t]]) * sigma_tok[t] in f32 (no scale when
+    ``sigma_tok`` is None).  x: (T, d_in); V: (k, d_in, r) -> (T, r) f32."""
+    t = torch.einsum("td,tdr->tr", x.float(), V[cids.long()].float())
+    return t if sigma_tok is None else t * sigma_tok.float()
+
+
+def tile_rows(tile_ids: torch.Tensor, T: int) -> torch.Tensor:
+    """Per-row ids of a grouped batch from its per-tile ids."""
+    return tile_ids.repeat_interleave(T // tile_ids.shape[0])
+
+
+def group_tokens_by_adapter(ids, n_adapters: int, tile: int):
+    """Host-side grouping: sort tokens by adapter and pad each group to a
+    multiple of ``tile``, so that every tile holds one adapter.
+
+    Returns (perm (T_pad,), tile_ids (T_pad // tile,), valid (T_pad,)),
+    int32 tensors on ``ids``' device (numpy input: the CPU):
+      - perm: indices into the original tokens; a padding slot repeats its
+        group's first token;
+      - tile_ids: the adapter of each tile;
+      - valid: 0/1, 0 on padding slots.
+    ``ids`` is copied to the host (one sync per call, as on the TPU).
+    """
+    device = ids.device if isinstance(ids, torch.Tensor) else "cpu"
+    ids_np = (ids.cpu().numpy() if isinstance(ids, torch.Tensor)
+              else np.asarray(ids))
+    if ids_np.size and (ids_np.min() < 0 or ids_np.max() >= n_adapters):
+        raise ValueError(f"adapter ids must lie in [0, {n_adapters})")
+    order = np.argsort(ids_np, kind="stable")
+    sorted_ids = ids_np[order]
+    starts = np.flatnonzero(np.r_[True, sorted_ids[1:] != sorted_ids[:-1]]) \
+        if ids_np.size else np.zeros(0, np.int64)
+    ends = np.r_[starts[1:], ids_np.size].astype(np.int64)
+    perm, valid, tile_ids = [], [], []
+    for s, e in zip(starts, ends):
+        sel = order[s:e]
+        pad = (-sel.size) % tile
+        perm.append(np.concatenate([sel, np.full(pad, sel[0])]))
+        valid.append(np.r_[np.ones(sel.size), np.zeros(pad)])
+        tile_ids.append(np.full((sel.size + pad) // tile, sorted_ids[s]))
+
+    def as_t(parts):
+        a = np.concatenate(parts) if parts else np.zeros(0)
+        return torch.from_numpy(a.astype(np.int32)).to(device)
+
+    return as_t(perm), as_t(tile_ids), as_t(valid)

@@ -174,7 +174,7 @@ class CostModelExecutor:
     streams ``lora_bytes_per_adapter * padded(r) / lora_rank`` bytes,
     where ``padded(r)`` rounds r up to the replica slice's native SGMV
     contraction tile (``slice_type.sgmv_tile_rank``; see
-    :func:`repro.kernels.sgmv.sgmv_tile_cost`).  The padding is what
+    :func:`repro_torch.kernels.sgmv.sgmv_tile_cost`).  The padding is what
     makes placement matter: a rank-4 adapter on a tile-32 slice streams
     8x its useful bytes.  ``rank_of=None`` keeps the homogeneous
     per-adapter constant, bit-exact with every committed baseline."""
@@ -203,7 +203,7 @@ class CostModelExecutor:
         Homogeneous (``rank_of=None``): the footprint's per-adapter
         constant, unchanged.  Heterogeneous: scale it to `aid`'s rank
         padded up to the slice's native SGMV contraction tile — the
-        per-rank cost :func:`repro.kernels.sgmv.sgmv_tile_cost` prices
+        per-rank cost :func:`repro_torch.kernels.sgmv.sgmv_tile_cost` prices
         (a tile of 1 means no padding)."""
         if self.rank_of is None:
             return self.fp.lora_bytes_per_adapter

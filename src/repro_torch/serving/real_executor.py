@@ -21,8 +21,8 @@ Decode paths (``decode_path``, surfaced as `EngineConfig.decode_path`):
 * ``"fused_q8"`` — ``"fused"`` plus int8 per-output-channel adapter
   residency (`kernels/adapter_quant.py`): banks are packed at
   construction, `adapter_bytes` shrinks ~4x, the o-target bank is
-  dequantized inside the fused kernels and q/k/v banks per layer with
-  the plain dequantization.
+  dequantized inside the fused kernels and q/k/v banks (and a full
+  o-target Sigma) per layer by the ``adapter_dequantize`` kernel.
 """
 from __future__ import annotations
 
@@ -34,8 +34,7 @@ import torch
 
 from ..device import resolve_device
 from ..kernels import ops as kops
-from ..kernels import ref as kref
-from ..kernels.adapter_quant import adapter_quantize
+from ..kernels.adapter_quant import adapter_dequantize, adapter_quantize
 from ..models import layers
 from ..models import transformer as tf
 from ..models.lora import LoRAContext
@@ -187,8 +186,8 @@ class RealModelExecutor:
                                           o_bank["A"][li], o_bank["B"][li])
         if self.decode_path == "fused_q8":
             sigma = (o_bank["sigma"][li] if "sigma" in o_bank else
-                     kref.adapter_dequant_ref(o_bank["sigma_q"][li],
-                                              o_bank["sigma_s"][li]))
+                     adapter_dequantize(o_bank["sigma_q"][li],
+                                        o_bank["sigma_s"][li]))
             return kops.fused_jd_decode(
                 q1, k_l, v_l, kv_len, ids, o_bank["U_q"][li],
                 o_bank["V_q"][li], sigma, o_bank["cluster_of"][li],
@@ -326,17 +325,17 @@ def _quantize_bundles(bundles: Dict, mode: str) -> Dict:
 
 
 def _dequantize_target(tp: Dict) -> Dict:
-    """f32 view of one (possibly packed) target bank."""
+    """f32 view of one (possibly packed) target bank, through the
+    ``adapter_dequantize`` kernel on the card."""
     if "A_q" in tp:
-        return {"A": kref.adapter_dequant_ref(tp["A_q"], tp["A_s"]),
-                "B": kref.adapter_dequant_ref(tp["B_q"], tp["B_s"])}
+        return {"A": adapter_dequantize(tp["A_q"], tp["A_s"]),
+                "B": adapter_dequantize(tp["B_q"], tp["B_s"])}
     if "U_q" in tp:
-        out = {"U": kref.adapter_dequant_ref(tp["U_q"], tp["U_s"]),
-               "V": kref.adapter_dequant_ref(tp["V_q"], tp["V_s"]),
+        out = {"U": adapter_dequantize(tp["U_q"], tp["U_s"]),
+               "V": adapter_dequantize(tp["V_q"], tp["V_s"]),
                "cluster_of": tp["cluster_of"]}
         out["sigma"] = (tp["sigma"] if "sigma" in tp else
-                        kref.adapter_dequant_ref(tp["sigma_q"],
-                                                 tp["sigma_s"]))
+                        adapter_dequantize(tp["sigma_q"], tp["sigma_s"]))
         return out
     return tp
 

@@ -11,9 +11,12 @@ present is decided inside the ``cuda`` fixture, never at import.
 import pytest
 import torch
 
+from repro_torch.kernels import adapter_quant as aq_mod
 from repro_torch.kernels import checks
 from repro_torch.kernels import flash_decode as fd_mod
 from repro_torch.kernels import fused_decode as fu_mod
+from repro_torch.kernels import jd_apply as jd_mod
+from repro_torch.kernels import sgmv as sg_mod
 from repro_torch.kernels.flash_decode import flash_decode
 
 pytestmark = pytest.mark.gpu
@@ -127,3 +130,130 @@ def test_wrappers_refuse_what_the_kernel_does_not_take(cuda):
         flash_decode(q.half(), k.half(), v.half(), kl)
     with pytest.raises(ValueError):
         flash_decode(q, k, v, kl.cpu())
+
+
+# -- adapter_dequantize and the grouped kernels ------------------------------
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,axis", [((16, 16, 4096), -1),
+                                        ((16, 4096, 16), -1),
+                                        ((1, 4096, 16), -2),
+                                        ((2, 3, 7, 100), -2)])
+def test_adapter_dequantize_equals_plain(cuda, shape, axis, out_dtype):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    w = torch.randn(shape, generator=gen, device=cuda) * 0.05
+    q, s = aq_mod.adapter_quantize(w, axis=axis)
+    before = aq_mod.LAUNCHES_DEQUANT
+    checks.check_adapter_dequantize(q, s, out_dtype)
+    assert aq_mod.LAUNCHES_DEQUANT == before + 1
+
+
+def _rand(gen, shape, std, dtype):
+    return (torch.randn(shape, generator=gen, device=gen.device)
+            * std).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("sweep", checks.SGMV_SWEEP + [
+    (4096, 4096, 4096, 32, 16, 128),            # mistral-7b width
+    (40, 96, 64, 5, 12, 8), (20, 70, 33, 3, 64, 16)])
+def test_sgmv_matches_plain(cuda, sweep, dtype):
+    T, d_in, d_out, n, r, tile = sweep
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    case = checks.sweep_case(T, d_in, n, tile, dtype, gen, cuda)
+    A = _rand(gen, (n, r, d_in), 1 / 8, dtype)
+    B = _rand(gen, (n, d_out, r), 1 / 4, dtype)
+    before = (sg_mod.LAUNCHES_SHRINK, sg_mod.LAUNCHES_EXPAND)
+    t = checks.check_sgmv_shrink(case, A)["out"]
+    checks.check_sgmv_expand(case, t.to(dtype), B)
+    assert (sg_mod.LAUNCHES_SHRINK, sg_mod.LAUNCHES_EXPAND) == \
+        (before[0] + 1, before[1] + 1)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("r", [4, 16, 33])
+def test_sigma_bmm_matches_plain(cuda, r, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    case = checks.sweep_case(48, r, 4, 8, dtype, gen, cuda)
+    before = sg_mod.LAUNCHES_SIGMA
+    checks.check_sigma_bmm(case, case["x"], _rand(gen, (4, r, r), 0.25,
+                                                  torch.float32))
+    assert sg_mod.LAUNCHES_SIGMA == before + 1
+
+
+@pytest.mark.parametrize("scaled", [True, False])
+@pytest.mark.parametrize("kcl,d_in,tile", [(1, 192, 8), (3, 192, 8),
+                                           (8, 4096, 128)])
+def test_jd_shrink_scale_matches_plain(cuda, scaled, kcl, d_in, tile):
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    n, r = 6, 16
+    case = checks.sweep_case(64 if tile == 8 else 1024, d_in, n, tile,
+                             torch.bfloat16, gen, cuda)
+    V = _rand(gen, (kcl, d_in, r), 0.05, torch.float32)
+    cluster_of = (torch.arange(n, device=cuda) % kcl).to(torch.int32)
+    tile_cids = cluster_of[case["tile_ids"].long()]
+    sig = _rand(gen, (n, r), 1.0, torch.float32)
+    sig_tok = sig[case["ids"].long()].to(torch.bfloat16) if scaled else None
+    before = jd_mod.LAUNCHES
+    checks.check_jd_shrink_scale(case, V, sig_tok, tile_cids, cluster_of)
+    assert jd_mod.LAUNCHES == before + 1
+
+
+@pytest.mark.parametrize("diag", [True, False])
+def test_ops_apply_matches_plain_chain(cuda, diag):
+    """The composed entry points on mixed-adapter tokens, ragged groups."""
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    T, d_in, d_out, n, r, k = 300, 512, 384, 9, 16, 3
+    x = _rand(gen, (T, d_in), 1.0, torch.bfloat16)
+    ids = torch.randint(0, n, (T,), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    A = _rand(gen, (n, r, d_in), 0.05, torch.bfloat16)
+    B = _rand(gen, (n, d_out, r), 0.05, torch.bfloat16)
+    y = ops.lora_apply(x, A, B, ids, tile=32, scaling=0.5)
+    checks.check_chain("lora_apply", y, checks.lora_chain_plain(
+        x, A, B, ids, 0.5))
+    U = _rand(gen, (k, d_out, r), 0.05, torch.float32)
+    V = _rand(gen, (k, d_in, r), 0.05, torch.float32)
+    sig = _rand(gen, (n, r) if diag else (n, r, r), 0.5, torch.float32)
+    cluster_of = (torch.arange(n, device=cuda) % k).to(torch.int32)
+    y = ops.jd_apply(x, U, V, sig, cluster_of, ids, tile=32)
+    checks.check_chain("jd_apply", y, checks.jd_chain_plain(
+        x, U, V, sig, cluster_of, ids))
+
+
+def test_grouped_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    from repro_torch.kernels.jd_apply import jd_shrink_scale
+    from repro_torch.kernels.sgmv import sgmv_expand, sgmv_shrink, sigma_bmm
+    x = torch.zeros((16, 64), device=cuda)
+    A = torch.zeros((2, 8, 64), device=cuda)
+    tid = torch.zeros(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):                     # rank above 64
+        sgmv_shrink(x, torch.zeros((2, 65, 64), device=cuda), tid, block_t=8)
+    with pytest.raises(ValueError):                     # tiles do not cut x
+        sgmv_shrink(x, A, tid, block_t=4)
+    with pytest.raises(ValueError):                     # int64 tile ids
+        sgmv_shrink(x, A, tid.long(), block_t=8)
+    with pytest.raises(ValueError):                     # ids on the CPU
+        sgmv_shrink(x, A, tid.cpu(), block_t=8)
+    with pytest.raises(TypeError):                      # fp16 activations
+        sgmv_shrink(x.half(), A, tid, block_t=8)
+    with pytest.raises(ValueError):                     # width mismatch
+        sgmv_shrink(x[:, :32].contiguous(), A, tid, block_t=8)
+    with pytest.raises(ValueError):                     # not contiguous
+        sgmv_expand(torch.zeros((8, 16), device=cuda).T, A, tid, block_t=8)
+    with pytest.raises(ValueError):                     # sigma not (n, r, r)
+        sigma_bmm(torch.zeros((16, 8), device=cuda),
+                  torch.zeros((2, 8, 4), device=cuda), tid, block_t=8)
+    with pytest.raises(ValueError):                     # sigma_tok shape
+        jd_shrink_scale(x, torch.zeros((1, 64, 8), device=cuda),
+                        torch.zeros((16, 4), device=cuda), tid, block_t=8)
+    with pytest.raises(ValueError):                     # scale shape
+        aq_mod.adapter_dequantize(
+            torch.zeros((2, 4, 6), dtype=torch.int8, device=cuda),
+            torch.ones((2, 4, 6), device=cuda))
+    with pytest.raises(TypeError):                      # not int8
+        aq_mod.adapter_dequantize(torch.zeros((2, 4, 6), device=cuda),
+                                  torch.ones((2, 4, 1), device=cuda))
