@@ -23,7 +23,8 @@ Phases (any failure ends the script with a non-zero exit code):
    at ``tests/test_kernels.py``'s sweep shapes and at mistral-7b's width
    (4096 tokens: 32 sequences of 128 on their own adapters of 1000, and
    32 decode tokens), each against its plain version, timed beside one
-   ``torch.bmm`` over the tiles where there is one;
+   ``torch.bmm`` over the tiles where there is one.  The paged kernels run
+   at the serving shapes too, over a pool of 16-token and 128-token pages;
 3. parity: a reduced model (2 layers, d 64, 4 heads over 2 KV heads, so
    the expand kernel sums partials across heads) in f32, with an f32 KV
    cache, decoding through the fused kernels on the card against the
@@ -34,7 +35,21 @@ Phases (any failure ends the script with a non-zero exit code):
    attention); every request must finish and every kernel's launch count
    must rise.  The counts are zeroed just before this phase and read just
    after it;
-5. compress_apply: ``repro_torch.launch.compress_apply.run`` at
+5. paged_kv: ``repro_torch.launch.paged_kv.run`` at mistral-7b's full
+   width and depth: 8 requests of 1024-2044 prompt tokens (8-16 pages of
+   128) served on the fused path in lora and jd mode, 4 decode steps;
+   then, for all 32 layers, the cache laid into a pool of pages under a
+   permuted table and ``flash_decode_paged`` and the fused paged kernel
+   of the mode held bit for bit against the contiguous kernels (and
+   against the plain versions); then one request's exported KV as
+   (T, 65536) wire blocks of 128 tokens plus a tail, through
+   ``kv_quantize`` / ``kv_dequantize`` at int8 and int4, bit for bit
+   against the plain versions, within ``ERROR_BOUND``, at ``WIRE_RATIO``
+   on the full blocks and at ``KVCompressionConfig.wire_bytes`` in all.
+   The five kernels' counts are zeroed just before and read just after;
+   then each is timed at this path's shapes (the paged kernels beside the
+   contiguous kernel on the same lengths);
+6. compress_apply: ``repro_torch.launch.compress_apply.run`` at
    mistral-7b's q-projection width (4096 -> 4096, rank 16) on 1000
    random bf16 adapters: clustered JD-Full (QR iteration, 8 clusters) and
    JD-Diag compression, then ``ops.lora_apply`` / ``ops.jd_apply`` on a
@@ -95,6 +110,23 @@ KERNELS = {
         route="cuda", source="src/repro_torch/kernels/csrc/jd_apply.cu"
         " + src/repro_torch/kernels/csrc/sgmv.cuh",
         replaces="src/repro/kernels/jd_apply.py:50"),
+    "flash_decode_paged": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/decode_attention.cu",
+        replaces="src/repro/kernels/flash_decode.py:135"),
+    "fused_decode_lora_paged": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/decode_attention.cu"
+        " + src/repro_torch/kernels/csrc/fused_expand.cu",
+        replaces="src/repro/kernels/fused_decode.py:238"),
+    "fused_decode_jd_paged": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/decode_attention.cu"
+        " + src/repro_torch/kernels/csrc/fused_expand.cu",
+        replaces="src/repro/kernels/fused_decode.py:358"),
+    "kv_quantize": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/kv_quant.cu",
+        replaces="src/repro/kernels/kv_quant.py:81"),
+    "kv_dequantize": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/kv_quant.cu",
+        replaces="src/repro/kernels/kv_quant.py:128"),
 }
 # compress_apply: mistral-7b's q projection, 1000 adapters, 32 sequences
 # of 128 prefill tokens (and one decode token each), 8 clusters, tile 128
@@ -207,6 +239,8 @@ def phase_kernels(dev):
         bound=checks.bound_ms(checks.fused_bytes(case, jfp, "jd"),
                               checks.fused_flops(case, jfp, "jd")))
 
+    rows.update(paged_serve_rows(dev, gen, case, bfp, jfp))
+
     # adapter banks as run_real packs them at mistral-7b width (32 layers)
     L = 32
     a_bank = (torch.randn((L, N_ADAPTERS, R, H * HD), generator=gen,
@@ -231,6 +265,61 @@ def phase_kernels(dev):
         bound=checks.bound_ms(checks.quant_bytes(a_bank, -1),
                               3 * a_bank.numel()))
     rows.update(grouped_kernel_rows(dev, gen))
+    return rows
+
+
+def paged_serve_rows(dev, gen, case, lora_banks, jd_banks):
+    """The paged kernels at the serving shapes: checked bit for bit against
+    the contiguous kernels over pools of 16- and 128-token pages (ragged
+    lengths, int8 banks too), and timed on 16-token pages beside the
+    contiguous kernels on the same content.  Returns the timings under
+    "serve" for each paged row."""
+    from repro_torch.kernels import checks
+    from repro_torch.kernels.flash_decode import flash_decode, flash_decode_paged
+    from repro_torch.kernels.fused_decode import (fused_decode_jd,
+                                                  fused_decode_jd_paged,
+                                                  fused_decode_lora,
+                                                  fused_decode_lora_paged)
+    bf16 = torch.bfloat16
+    ragged = checks.attention_case(B, H, KV, HD, S_MAX, BUCKET,
+                                   [1, 7, 64, 65, 100, 127, 128, 33], bf16,
+                                   gen, dev)
+    ragged["ids"] = case["ids"]
+    for c in (case, ragged):
+        for page_t in (16, 128):
+            pc = checks.paged_case(c, page_t, 37, gen)
+            checks.check_flash_decode_paged(pc)
+            for quant in (False, True):
+                checks.check_fused_lora_paged(pc, checks.lora_banks(
+                    N_ADAPTERS, R, H * HD, D_OUT, bf16, gen, dev, quant))
+                for diag in (True, False):
+                    checks.check_fused_jd_paged(pc, checks.jd_banks(
+                        1, N_ADAPTERS, R, H * HD, D_OUT, bf16, gen, dev,
+                        quant, diag))
+    log("[kernels] paged == contiguous bit for bit at the serving shapes "
+        "(pages of 16 and 128 tokens, ragged lengths, fp and int8 banks)")
+    pc = checks.paged_case(case, 16, 37, gen)
+    pa = (pc["q"], pc["k_pages"], pc["v_pages"], pc["page_table"],
+          pc["kv_len"])
+    ca = (pc["q"], pc["k_logical"], pc["v_logical"], pc["kv_len"])
+    la = (case["ids"], lora_banks["A"], lora_banks["B"])
+    ja = (case["ids"], jd_banks["U"], jd_banks["V"], jd_banks["sigma"],
+          jd_banks["cluster_of"])
+    fused = [checks.ATTN_KERNEL, checks.EXPAND_KERNEL]
+    specs = {"flash_decode_paged": (flash_decode_paged, flash_decode, (),
+                                    [checks.ATTN_KERNEL]),
+             "fused_decode_lora_paged": (fused_decode_lora_paged,
+                                         fused_decode_lora, la, fused),
+             "fused_decode_jd_paged": (fused_decode_jd_paged,
+                                       fused_decode_jd, ja, fused)}
+    rows = {}
+    for name, (paged, cont, extra, kernels) in specs.items():
+        rows[name] = {"serve": dict(
+            page_t=16, ms=checks.cuda_ms(lambda: paged(*pa, *extra)),
+            device_ms=checks.device_ms(lambda: paged(*pa, *extra), kernels),
+            contiguous_ms=checks.cuda_ms(lambda: cont(*ca, *extra)),
+            contiguous_device_ms=checks.device_ms(lambda: cont(*ca, *extra),
+                                                  kernels))}
     return rows
 
 
@@ -267,7 +356,7 @@ def grouped_kernel_rows(dev, gen):
         device_ms=checks.device_ms(lambda: adapter_dequantize(q, sc),
                                    [checks.DEQUANT_KERNEL]),
         plain_ms=checks.cuda_ms(lambda: ref.adapter_dequant_ref(q, sc)),
-        library_ms=None,
+        library_ms=checks.cuda_ms(checks.library_dequant(q, sc)),
         bound=checks.bound_ms(checks.dequant_bytes(q, sc, f32), q.numel()))
 
     # tests/test_kernels.py's sweeps
@@ -481,6 +570,129 @@ def phase_serve(dev):
     return launches
 
 
+def phase_paged_kv(dev, rows):
+    """The paged-KV and KV-wire path through its entry point at
+    mistral-7b's full width and depth; then its five kernels timed at the
+    path's shapes (the last layer's pool and table, the exported request's
+    first 128-token wire block).  Fills the five kernels' rows."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import (checks, flash_decode, fused_decode,
+                                     kv_quant, ref)
+    from repro_torch.launch import paged_kv
+    cfg = get_config("mistral-7b")
+    flash_decode.LAUNCHES_PAGED = 0
+    fused_decode.LAUNCHES_LORA_PAGED = fused_decode.LAUNCHES_JD_PAGED = 0
+    kv_quant.LAUNCHES_QUANT = kv_quant.LAUNCHES_DEQUANT = 0
+    t0 = time.perf_counter()
+    report, art = paged_kv.run(cfg, device=dev)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    launches = {"flash_decode_paged": flash_decode.LAUNCHES_PAGED,
+                "fused_decode_lora_paged": fused_decode.LAUNCHES_LORA_PAGED,
+                "fused_decode_jd_paged": fused_decode.LAUNCHES_JD_PAGED,
+                "kv_quantize": kv_quant.LAUNCHES_QUANT,
+                "kv_dequantize": kv_quant.LAUNCHES_DEQUANT}
+    log("[paged_kv] launches on the path: " + json.dumps(launches)
+        + f"; wall {wall:.1f} s")
+    for name, n in launches.items():
+        assert n > 0, f"{name} was never launched on the paged_kv path"
+    for mode, row in report["modes"].items():
+        srv = row["serve"]
+        assert row["paged"]["layers"] == cfg.num_layers
+        assert min(srv["prompt_lens"]) >= 1024, srv["prompt_lens"]
+        log("[paged_kv] " + json.dumps({"mode": mode, **row}))
+    log(f"[paged_kv] paged == contiguous bit for bit on all "
+        f"{cfg.num_layers} layers in both modes; the KV wire exact, within "
+        f"ERROR_BOUND, at WIRE_RATIO and at KVCompressionConfig.wire_bytes; "
+        f"reduced: [] (all {cfg.num_layers} layers, full width, prompts "
+        f"1024-2044)")
+
+    # timed at this path's shapes: B 8, kv_len 1028-2048, pages of 128
+    fused = [checks.ATTN_KERNEL, checks.EXPAND_KERNEL]
+    specs = {  # name: (mode, paged, contiguous, plain, check, kernels)
+        "flash_decode_paged": (
+            "lora", flash_decode.flash_decode_paged, flash_decode.flash_decode,
+            ref.flash_decode_paged_ref,
+            lambda pc, banks: checks.check_flash_decode_paged(pc),
+            [checks.ATTN_KERNEL]),
+        "fused_decode_lora_paged": (
+            "lora", fused_decode.fused_decode_lora_paged,
+            fused_decode.fused_decode_lora, ref.fused_decode_lora_paged_ref,
+            checks.check_fused_lora_paged, fused),
+        "fused_decode_jd_paged": (
+            "jd", fused_decode.fused_decode_jd_paged,
+            fused_decode.fused_decode_jd, ref.fused_decode_jd_paged_ref,
+            checks.check_fused_jd_paged, fused)}
+    for name, (mode, paged, cont, plain, check, kernels) in specs.items():
+        pc, banks = art[mode]["paged"]
+        case = dict(pc, k=pc["k_logical"], v=pc["v_logical"])
+        pa = (pc["q"], pc["k_pages"], pc["v_pages"], pc["page_table"],
+              pc["kv_len"])
+        ca = (pc["q"], pc["k_logical"], pc["v_logical"], pc["kv_len"])
+        if name == "flash_decode_paged":
+            extra = ()
+            nbytes = checks.attention_bytes(case)
+            flops = checks.attention_flops(case)
+        else:
+            extra = (pc["ids"],) + ((banks["A"], banks["B"]) if mode == "lora"
+                                    else (banks["U"], banks["V"],
+                                          banks["sigma"], banks["cluster_of"]))
+            nbytes = checks.fused_bytes(case, banks, mode)
+            flops = checks.fused_flops(case, banks, mode)
+        res = check(pc, banks)
+        rows[name].update(
+            max_abs_err=res["max_abs_err"], tolerance=res["tolerance"],
+            ms=checks.cuda_ms(lambda: paged(*pa, *extra)),
+            device_ms=checks.device_ms(lambda: paged(*pa, *extra), kernels),
+            contiguous_ms=checks.cuda_ms(lambda: cont(*ca, *extra)),
+            contiguous_device_ms=checks.device_ms(lambda: cont(*ca, *extra),
+                                                  kernels),
+            plain_ms=checks.cuda_ms(lambda: plain(*pa, *extra), iters=10),
+            library_ms=None,
+            bound=checks.bound_ms(nbytes + checks.paged_table_bytes(pc),
+                                  flops),
+            shape=dict(B=B, kv_len=[int(n) for n in pc["kv_len"]],
+                       page_t=pc["page_t"],
+                       pool_pages=pc["k_pages"].shape[0]))
+
+    x = art["lora"]["wire_block"]
+    assert tuple(x.shape) == (128, 65536) and x.dtype == torch.bfloat16
+    q8 = checks.check_kv_quantize(x, 8)
+    q4 = checks.check_kv_quantize(x, 4)
+    q, sc = q8["packed"], q8["scales"]
+    checks.check_kv_dequantize(q, sc, 8, torch.float32)
+    quant_ms = checks.cuda_ms(lambda: kv_quant.kv_quantize(x, 8))
+    quant_dev = checks.device_ms(lambda: kv_quant.kv_quantize(x, 8),
+                                 [checks.KV_QUANT_KERNEL])
+    rows["kv_quantize"] = dict(
+        max_abs_err=0.0, tolerance="exact", ms=quant_ms, device_ms=quant_dev,
+        plain_ms=checks.cuda_ms(lambda: ref.kv_quant_ref(x, 8)),
+        library_ms=None, bound=checks.bound_ms(checks.kv_quant_bytes(x, 8),
+                                               3 * x.numel()),
+        ms_int4=checks.cuda_ms(lambda: kv_quant.kv_quantize(x, 4)),
+        device_ms_int4=checks.device_ms(lambda: kv_quant.kv_quantize(x, 4),
+                                        [checks.KV_QUANT_KERNEL]),
+        launch_overhead_ms=quant_ms - quant_dev,
+        shape=dict(T=128, C=65536, bits=8, dtype="bf16"))
+    rows["kv_dequantize"] = dict(
+        max_abs_err=0.0, tolerance="exact",
+        ms=checks.cuda_ms(lambda: kv_quant.kv_dequantize(q, sc, 8)),
+        device_ms=checks.device_ms(lambda: kv_quant.kv_dequantize(q, sc, 8),
+                                   [checks.KV_DEQUANT_KERNEL]),
+        plain_ms=checks.cuda_ms(lambda: ref.kv_dequant_ref(q, sc)),
+        library_ms=checks.cuda_ms(checks.library_dequant(q, sc)),
+        bound=checks.bound_ms(checks.kv_dequant_bytes(q, sc, 8,
+                                                      torch.float32),
+                              q.numel()),
+        ms_int4=checks.cuda_ms(lambda: kv_quant.kv_dequantize(
+            q4["packed"], q4["scales"], 4)),
+        shape=dict(T=128, C=65536, bits=8, out="f32"))
+    log(f"[paged_kv] kv_quantize launch overhead (CUDA-event ms less device "
+        f"ms, one call on a (128, 65536) bf16 block): "
+        f"{rows['kv_quantize']['launch_overhead_ms']:.4f} ms")
+    return launches
+
+
 def phase_compress_apply(dev):
     """The compress-then-apply path at mistral-7b's width through its entry
     point, then its outputs against plain chains on the card."""
@@ -602,6 +814,7 @@ def main() -> int:
     rows = phase_kernels(dev)
     phase_parity(dev)
     launches = phase_serve(dev)
+    launches.update(phase_paged_kv(dev, rows))
     launches.update(phase_compress_apply(dev))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -619,6 +832,11 @@ def main() -> int:
                  "tolerance": r["tolerance"]}
         if "ms_int8" in r:
             entry["ms_int8_banks"] = r["ms_int8"]
+        for key in ("contiguous_ms", "contiguous_device_ms", "serve",
+                    "ms_int4", "device_ms_int4", "launch_overhead_ms",
+                    "shape"):
+            if key in r:
+                entry[key] = r[key]
         kernels.append(entry)
     log(json.dumps({"kernels": list(KERNELS)}))
     log(smi)

@@ -43,19 +43,22 @@ _F = ctypes.c_float
 # C entry points and their argument types; every one returns a cudaError_t
 SIGNATURES = {
     "flash_decode_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                            _I64, _I64, _I64, _I64, _F, _I, _I, _P],
+                            _I64, _I64, _I64, _I64, _F, _I, _I, _P, _I, _I,
+                            _P],
     "fused_attn_shrink_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _I,
                                  _P, _P, _I, _I, _I, _I, _I, _I64, _I64,
-                                 _I64, _I64, _F, _I, _I, _P],
+                                 _I64, _I64, _F, _I, _I, _P, _I, _I, _P],
     "fused_expand_launch": [_P, _P, _P, _P, _I, _I, _P, _I, _P, _P, _I, _I,
                             _I, _I, _P],
-    "adapter_quant_launch": [_P, _I, _P, _P, _I64, _I, _I, _I, _P],
+    "adapter_quant_launch": [_P, _I, _P, _P, _I64, _I, _I, _I, _F, _P],
     "adapter_dequant_launch": [_P, _P, _P, _I, _I64, _I, _I, _I, _P],
     "sgmv_shrink_launch": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _P],
     "sgmv_expand_launch": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _P],
     "sigma_bmm_launch": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _P],
     "jd_shrink_scale_launch": [_P, _I, _P, _I, _P, _P, _I, _P, _I, _I, _I,
                                _I, _P],
+    "kv_quant_launch": [_P, _I, _P, _P, _I, _I, _I, _P],
+    "kv_dequant_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 

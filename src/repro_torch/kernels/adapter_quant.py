@@ -14,8 +14,10 @@ What bounds it on an H100 is memory: one read of the bank, one write of
 a quarter (from f32) or half (from bf16) of it.  The kernel takes one warp
 per row (so the many 16-wide rows of a rank-16 ``B`` do not each occupy a
 block) or one block per 32-column tile, and equals the plain version
-exactly: IEEE division and round half to even.  Dequantization is one f32
-multiply and one rounding per value, also exact.
+exactly: IEEE division and round half to even, with ``kv_quant.QMAX[8]``
+levels.  Dequantization is one f32 multiply and one rounding per value,
+also exact.  The round trip's error per channel is within
+:func:`int8_error_bound`.
 
 A CPU tensor goes to the plain version (``ref.adapter_quant_ref``); a CUDA
 tensor launches the kernel or raises.
@@ -28,6 +30,7 @@ import torch
 
 from . import _build
 from . import ref
+from .kv_quant import ERROR_BOUND, QMAX
 
 LAUNCHES = 0             # quantize launches since the last reset
 LAUNCHES_DEQUANT = 0     # dequantize launches since the last reset
@@ -63,7 +66,8 @@ def adapter_quantize(w: torch.Tensor, *, axis: int = -1):
     scale = torch.empty(s_shape, dtype=torch.float32, device=w.device)
     err = _build.lib().adapter_quant_launch(
         w.data_ptr(), _build.dtype_code(w.dtype), q.data_ptr(),
-        scale.data_ptr(), N, R, C, int(rows), _build.stream_ptr(w.device))
+        scale.data_ptr(), N, R, C, int(rows), float(QMAX[8]),
+        _build.stream_ptr(w.device))
     _build.check(err, "adapter_quantize")
     LAUNCHES += 1
     return q, scale
@@ -112,3 +116,11 @@ def quantized_nbytes(shape, *, axis: int = -1) -> int:
     axis = _norm_axis(len(shape), axis)
     values = math.prod(shape)
     return values + INT8_SCALE_BYTES * (values // shape[axis])
+
+
+def int8_error_bound(w: torch.Tensor, *, axis: int = -1) -> torch.Tensor:
+    """Worst-case |dequant(quant(w)) - w| per output channel: half a
+    quantization step, ``absmax * ERROR_BOUND[8]`` (the KV kernels'
+    bound), keepdims along ``axis``."""
+    axis = _norm_axis(w.ndim, axis)
+    return w.float().abs().amax(dim=axis, keepdim=True) * ERROR_BOUND[8]

@@ -18,6 +18,21 @@ it states, and returns the worst error.  The tolerances:
   at mistral-7b's width, and is what the CPU wrappers and the JAX parity
   tests use.)
 * ``adapter_quantize`` and ``adapter_dequantize``: exact.
+* the paged kernels (``flash_decode_paged``, ``fused_decode_*_paged``):
+  bit-identical with the contiguous kernels on the same logical content
+  (``out``, ``l``, ``m``, ``delta``), and within the contiguous
+  tolerances of the plain versions plus :func:`attention_slack`, the f32
+  error of an attention output over a long cache with large logits:
+  ``2**-20 * M``, M = sum_i p_i (A_i + 1)(|v_i| + |out|), A_i the logit's
+  sum of absolute products.  A logit's error moves the output by
+  ``p_i * ds_i * |v_i - out|``: on mistral-7b's served cache (random
+  weights: large logits, small outputs that cancel from large values,
+  2048 rows) the kernel and the plain version, both right, can sit past
+  ``2**-7 * |ref| + 1e-5`` apart.  The delta adds that slack carried
+  through the adapter's absolute values.
+* ``kv_quantize`` and ``kv_dequantize``: exact (packed bytes, scales and
+  outputs), and the round trip within ``ERROR_BOUND[bits] * absmax *
+  (1 + 1e-5)`` per channel.
 * the grouped kernels (``sgmv_shrink``, ``sgmv_expand``, ``sigma_bmm``,
   ``jd_shrink_scale``) against their per-row plain versions on the same
   inputs: the same f32 products summed in another order, so
@@ -41,9 +56,11 @@ import torch
 
 from . import ref
 from .adapter_quant import adapter_dequantize, adapter_quantize
-from .flash_decode import flash_decode
-from .fused_decode import fused_decode_jd, fused_decode_lora
+from .flash_decode import flash_decode, flash_decode_paged
+from .fused_decode import (fused_decode_jd, fused_decode_jd_paged,
+                           fused_decode_lora, fused_decode_lora_paged)
 from .jd_apply import jd_shrink_scale
+from .kv_quant import ERROR_BOUND, kv_dequantize, kv_quantize
 from .sgmv import sgmv_expand, sgmv_shrink, sigma_bmm
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA's data sheet
@@ -52,6 +69,7 @@ F32_FLOPS = 67e12                # H100 SXM f32 outside the tensor cores
 ATTN_KERNEL, EXPAND_KERNEL = "decode_attn_kernel", "fused_expand_kernel"
 QUANT_KERNELS = ("quant_rows_kernel", "quant_cols_kernel")
 DEQUANT_KERNEL = "dequant_kernel"
+KV_QUANT_KERNEL, KV_DEQUANT_KERNEL = "kv_quantize_kernel", "kv_dequantize_kernel"
 # sgmv_shrink and jd_shrink_scale are instances of one template
 SHRINK_KERNEL = "grouped_shrink_kernel"
 SGMV_EXPAND_KERNEL, SIGMA_KERNEL = "sgmv_expand_kernel", "sigma_bmm_kernel"
@@ -148,8 +166,13 @@ def _assert_close(name, got, want, tol):
     err = (got.float() - want.float()).abs()
     bad = err > tol
     if bool(bad.any()):
-        raise AssertionError(f"{name}: {int(bad.sum())} elements beyond "
-                             f"tolerance, max error {float(err.max()):.3e}")
+        i = tuple(bad.nonzero()[0].tolist())
+        tol_i = (torch.broadcast_to(tol, err.shape)[i]
+                 if isinstance(tol, torch.Tensor) else tol)
+        raise AssertionError(
+            f"{name}: {int(bad.sum())} elements beyond tolerance, max error "
+            f"{float(err.max()):.3e}; first at {i}: got {float(got[i])!r}, "
+            f"want {float(want[i])!r}, tolerance {float(tol_i):.3e}")
     return float(err.max())
 
 
@@ -280,6 +303,232 @@ def check_adapter_quantize(w: torch.Tensor, axis: int) -> Dict:
 def quant_bytes(w: torch.Tensor, axis: int) -> int:
     channels = w.numel() // w.shape[axis]
     return w.numel() * w.element_size() + w.numel() + 4 * channels
+
+
+# -- paged KV ------------------------------------------------------------------
+
+
+def paged_case(case, page_t: int, spare_pages: int, gen) -> Dict:
+    """``case``'s K/V laid into one pool of pages under a permuted table:
+    the first ``n_blocks = ceil(max kv_len / page_t)`` blocks of each
+    sequence go to pages drawn without repeats from a pool of
+    ``B * n_blocks + spare_pages`` (the ``_paged`` helper of
+    tests/test_kernels.py, with a pool larger than needed).  Adds
+    ``k_pages``, ``v_pages``, ``page_table`` and ``k_logical`` /
+    ``v_logical``, the contiguous (B, n_blocks * page_t, Kv, hd) content
+    the pool holds."""
+    k, v = case["k"], case["v"]
+    B, S, Kv, hd = k.shape
+    n_blocks = -(-int(case["kv_len"].max()) // page_t)
+    P = B * n_blocks + spare_pages
+    perm = torch.randperm(P, generator=gen, device=gen.device)[:B * n_blocks]
+    table = perm.to(device=k.device, dtype=torch.int32).reshape(B, n_blocks)
+    out = dict(case, page_table=table, page_t=page_t)
+    for name, t in (("k", k), ("v", v)):
+        n = min(S, n_blocks * page_t)
+        logical = torch.zeros((B, n_blocks * page_t, Kv, hd), dtype=t.dtype,
+                              device=t.device)
+        logical[:, :n] = t[:, :n]
+        pool = torch.zeros((P, page_t, Kv, hd), dtype=t.dtype,
+                           device=t.device)
+        pool[table.reshape(-1).long()] = logical.reshape(
+            B * n_blocks, page_t, Kv, hd)
+        out[name + "_pages"], out[name + "_logical"] = pool, logical
+    return out
+
+
+def _paged_args(pc):
+    return (pc["q"], pc["k_pages"], pc["v_pages"], pc["page_table"],
+            pc["kv_len"])
+
+
+def _equal(name, got, want) -> None:
+    if not torch.equal(got, want):
+        bad = int((got != want).sum())
+        raise AssertionError(f"{name}: {bad} elements differ")
+
+
+def attention_slack(q, k, v, kv_len) -> torch.Tensor:
+    """(B, H, hd): ``2**-20 * M`` with M = sum_i p_i (A_i + 1)(|v_i| +
+    |out|) and A_i = sum_d |q_d k_id| * hd**-0.5, the f32 error of an
+    attention output whose logits and weighted sum two implementations
+    take in other orders (see the module docstring)."""
+    B, H, hd = q.shape
+    S, Kv = k.shape[1], k.shape[2]
+    G = H // Kv
+    qs = q.reshape(B, Kv, G, hd).float() * (hd ** -0.5)
+    A = torch.einsum("bkgh,bskh->bkgs", qs.abs(), k.float().abs())
+    logits = torch.einsum("bkgh,bskh->bkgs", qs, k.float())
+    valid = (torch.arange(S, device=q.device)[None, :]
+             < kv_len.reshape(-1, 1).to(q.device))[:, None, None, :]
+    p = torch.softmax(torch.where(valid, logits, torch.full_like(
+        logits, ref.NEG_INF)), dim=-1)
+    w = p * (A + 1.0)
+    out = torch.einsum("bkgs,bskh->bkgh", p, v.float())
+    M = (torch.einsum("bkgs,bskh->bkgh", w, v.float().abs())
+         + w.sum(-1, keepdim=True) * out.abs())
+    return 2.0 ** -20 * M.reshape(B, H, hd)
+
+
+def _slack_through(slack, banks, ids, kind: str) -> torch.Tensor:
+    """The attention slack (B, H, hd) carried through the adapter's
+    absolute values into (B, d_out), as the delta contracts it."""
+    e = slack.reshape(slack.shape[0], -1)
+    ids = ids.long()
+    if kind == "lora":
+        t = torch.einsum("bd,brd->br", e,
+                         ref._deq(banks["A"], banks["a_scale"])[ids].abs())
+        return torch.einsum("br,bor->bo", t, ref._deq(
+            banks["B"], banks["b_scale"])[ids].abs())
+    cid = banks["cluster_of"].long()[ids]
+    t = torch.einsum("bd,bdr->br", e,
+                     ref._deq(banks["V"], banks["v_scale"])[cid].abs())
+    sig = banks["sigma"][ids].float().abs()
+    t = t * sig if sig.ndim == 2 else torch.einsum("br,brq->bq", t, sig)
+    return torch.einsum("br,bor->bo", t, ref._deq(
+        banks["U"], banks["u_scale"])[cid].abs())
+
+
+PAGED_OUT_TOL = ("bit-identical with the contiguous kernel; "
+                 "2**-7*|ref|+1e-5 (bf16 out) + attention_slack of the "
+                 "plain version")
+
+
+def check_flash_decode_paged(pc) -> Dict:
+    """Paged == contiguous bit for bit (out, l, m) on the pool's logical
+    content, and close to the plain version."""
+    out, l, m = flash_decode_paged(*_paged_args(pc))
+    c_out, c_l, c_m = flash_decode(pc["q"], pc["k_logical"],
+                                   pc["v_logical"], pc["kv_len"])
+    for name, got, want in (("out", out, c_out), ("l", l, c_l),
+                            ("m", m, c_m)):
+        _equal(f"flash_decode_paged {name} against the contiguous kernel",
+               got, want)
+    r_out, _, _ = ref.flash_decode_paged_ref(*_paged_args(pc))
+    slack = attention_slack(pc["q"], pc["k_logical"], pc["v_logical"],
+                            pc["kv_len"])
+    err = _assert_close("flash_decode_paged out", out, r_out,
+                        _out_tol(r_out) + slack)
+    return {"max_abs_err": err, "out": out, "tolerance": PAGED_OUT_TOL}
+
+
+PAGED_DELTA_TOL = ("bit-identical with the contiguous kernel; " + DELTA_TOL
+                   + " + attention_slack through |adapter|")
+
+
+def _kernel_delta(pc) -> bool:
+    """The plain version to hold ``delta`` to: on the card the one that
+    contracts the f32 attention output, as the kernels do; on the CPU the
+    wrapper is the plain version itself (the rounded ``out``)."""
+    return pc["q"].is_cuda
+
+
+def check_fused_lora_paged(pc, banks) -> Dict:
+    args = (pc["ids"], banks["A"], banks["B"], banks["a_scale"],
+            banks["b_scale"])
+    out, delta = fused_decode_lora_paged(*_paged_args(pc), *args)
+    c_out, c_delta = fused_decode_lora(pc["q"], pc["k_logical"],
+                                       pc["v_logical"], pc["kv_len"], *args)
+    _equal("fused_decode_lora_paged out against the contiguous kernel", out,
+           c_out)
+    _equal("fused_decode_lora_paged delta against the contiguous kernel",
+           delta, c_delta)
+    _, r_delta = ref.fused_decode_lora_paged_ref(
+        *_paged_args(pc), *args, f32_delta=_kernel_delta(pc))
+    slack = _slack_through(attention_slack(
+        pc["q"], pc["k_logical"], pc["v_logical"], pc["kv_len"]), banks,
+        pc["ids"], "lora")
+    err = _assert_close("fused_decode_lora_paged delta", delta, r_delta,
+                        _delta_tol(r_delta) + slack)
+    return {"max_abs_err": err, "tolerance": PAGED_DELTA_TOL}
+
+
+def check_fused_jd_paged(pc, banks) -> Dict:
+    args = (pc["ids"], banks["U"], banks["V"], banks["sigma"],
+            banks["cluster_of"], banks["u_scale"], banks["v_scale"])
+    out, delta = fused_decode_jd_paged(*_paged_args(pc), *args)
+    c_out, c_delta = fused_decode_jd(pc["q"], pc["k_logical"],
+                                     pc["v_logical"], pc["kv_len"], *args)
+    _equal("fused_decode_jd_paged out against the contiguous kernel", out,
+           c_out)
+    _equal("fused_decode_jd_paged delta against the contiguous kernel",
+           delta, c_delta)
+    _, r_delta = ref.fused_decode_jd_paged_ref(
+        *_paged_args(pc), *args, f32_delta=_kernel_delta(pc))
+    slack = _slack_through(attention_slack(
+        pc["q"], pc["k_logical"], pc["v_logical"], pc["kv_len"]), banks,
+        pc["ids"], "jd")
+    err = _assert_close("fused_decode_jd_paged delta", delta, r_delta,
+                        _delta_tol(r_delta) + slack)
+    return {"max_abs_err": err, "tolerance": PAGED_DELTA_TOL}
+
+
+def paged_table_bytes(pc) -> int:
+    """The table entries the kernel reads: ceil(kv_len / page_t) a row."""
+    n_blocks = pc["page_table"].shape[1]
+    used = torch.clamp(-(-pc["kv_len"].long() // pc["page_t"]), max=n_blocks)
+    return 4 * int(used.sum())
+
+
+# -- KV wire quantization ---------------------------------------------------------
+
+
+def check_kv_quantize(x: torch.Tensor, bits: int) -> Dict:
+    """The kernel's packed bytes and scales equal the plain version's (the
+    plain quantization, packed by ``ref.pack_int4`` under int4)."""
+    packed, scales = kv_quantize(x, bits)
+    r_q, r_s = ref.kv_quant_ref(x, bits)
+    r_packed = r_q if bits == 8 else ref.pack_int4(r_q)
+    _equal(f"kv_quantize int{bits} values", packed, r_packed)
+    _equal(f"kv_quantize int{bits} scales", scales, r_s)
+    return {"max_abs_err": 0.0, "tolerance": "exact", "packed": packed,
+            "scales": scales}
+
+
+def check_kv_dequantize(packed: torch.Tensor, scales: torch.Tensor,
+                        bits: int, out_dtype) -> Dict:
+    got = kv_dequantize(packed, scales, bits, out_dtype)
+    q = packed if bits == 8 else ref.unpack_int4(packed)
+    _equal(f"kv_dequantize int{bits}", got,
+           ref.kv_dequant_ref(q, scales, out_dtype))
+    return {"max_abs_err": 0.0, "tolerance": "exact", "out": got}
+
+
+def check_kv_error(x: torch.Tensor, deq: torch.Tensor, bits: int) -> float:
+    """|deq - x| per channel within ``ERROR_BOUND[bits]`` of the channel's
+    absmax (times 1 + 1e-5); returns the worst ratio to the absmax."""
+    xf = x.float()
+    absmax = xf.abs().amax(dim=0, keepdim=True)
+    err = (deq.float() - xf).abs()
+    tol = ERROR_BOUND[bits] * absmax * (1 + 1e-5)
+    bad = err > tol
+    if bool(bad.any()):
+        raise AssertionError(f"kv int{bits} round trip: {int(bad.sum())} "
+                             f"values beyond ERROR_BOUND")
+    return float((err / torch.where(absmax > 0, absmax,
+                                    torch.ones_like(absmax))).max())
+
+
+def kv_quant_bytes(x: torch.Tensor, bits: int) -> int:
+    """x read once; the packed values and the f32 scales written."""
+    T, C = x.shape
+    return _nbytes(x) + (T * C if bits == 8 else T // 2 * C) + 4 * C
+
+
+def kv_dequant_bytes(packed: torch.Tensor, scales: torch.Tensor, bits: int,
+                     out_dtype) -> int:
+    rows, C = packed.shape
+    T = rows if bits == 8 else 2 * rows
+    es = torch.empty((), dtype=out_dtype).element_size()
+    return _nbytes(packed, scales) + T * C * es
+
+
+def library_dequant(q: torch.Tensor, scales: torch.Tensor
+                    ) -> Callable[[], torch.Tensor]:
+    """One PyTorch call computing int8 dequantization to f32 (KV blocks or
+    adapter banks), as a yardstick only: ``q * scales`` (int8 times f32
+    promotes to f32: one multiply, no further rounding)."""
+    return lambda: q * scales
 
 
 def library_attention(case) -> Callable[[], torch.Tensor]:

@@ -48,3 +48,18 @@ __device__ __forceinline__ float warp_max(float x) {
     x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
   return x;
 }
+
+// Symmetric quantization shared by adapter_quant.cu and kv_quant.cu: the
+// scale of a channel whose absmax is `absmax` (1 where it is 0), and one
+// value's level in [-qmax, qmax].  Exact, as the plain versions: IEEE
+// division (__fdiv_rn; these files are never built with --use_fast_math)
+// and rounding half to even (rintf, as jnp.round and torch.round; never
+// roundf, which rounds half away from zero).
+__device__ __forceinline__ float scale_of(float absmax, float qmax) {
+  return absmax > 0.f ? __fdiv_rn(absmax, qmax) : 1.0f;
+}
+
+__device__ __forceinline__ int quant(float x, float scale, float qmax) {
+  const float qv = rintf(__fdiv_rn(x, scale));
+  return (int)fminf(fmaxf(qv, -qmax), qmax);
+}

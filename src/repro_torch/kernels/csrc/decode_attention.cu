@@ -19,6 +19,25 @@
 // with explicit _rn intrinsics so that no FMA contraction choice can make
 // two launches differ.
 //
+// Paged addressing (replacing kernels/flash_decode.py::flash_decode_paged
+// and fused_decode.py::fused_decode_lora_paged / fused_decode_jd_paged):
+// with a non-null page table, K/V come from a pool of pages (P, page_t,
+// Kv, hd) and row s of sequence b lives at
+//   pool + page_table[b * n_blocks + s / page_t] * page_stride
+//        + (s % page_t) * row_stride + kvh * hd,
+// the page strides passed where the contiguous launch passes batch
+// strides (the K and V pools have one shape and layout, so one offset
+// serves both).  The page is looked up per row, not per TILE_S tile (a
+// tile may span pages: page_t 16 in tests/test_kernels.py): at the start
+// of each tile every row's offset is computed once into shared memory, in
+// int64 (a pool of 20k pages of 128 x 8 x 128 passes 2^31 elements), so the
+// inner loops add one offset per row as the contiguous mode does.  Only rows below kv_len[b] are read, so table entries past
+// ceil(kv_len / page_t) are never touched; the TPU kernel fetches and masks
+// them, with the same result.  The arithmetic is the contiguous kernel's,
+// unchanged (one template, PAGED only picks the addresses), so a paged
+// launch gives out, l, m and partial bit-identical to a contiguous launch
+// on equal logical content.
+//
 // Epilogue modes:
 //   MODE_NONE: write out (q's dtype) and the softmax stats l, m;
 //   MODE_ROWS: raw LoRA.  t[j] = sum_c of[c] * A[ids[b], j, head cols c],
@@ -52,7 +71,7 @@
 
 #define NEG_INF (-1e30f)
 
-template <typename T, typename TKV>
+template <typename T, typename TKV, bool PAGED>
 __global__ void __launch_bounds__(ATTN_THREADS) decode_attn_kernel(
     const T* __restrict__ q, const TKV* __restrict__ k,
     const TKV* __restrict__ v, const int* __restrict__ kv_len, int H, int Kv,
@@ -61,7 +80,8 @@ __global__ void __launch_bounds__(ATTN_THREADS) decode_attn_kernel(
     float* __restrict__ m_out, int mode, const int* __restrict__ ids,
     const int* __restrict__ cluster_of, const void* __restrict__ bank,
     int bank_dtype, const float* __restrict__ bank_scale, int r,
-    float* __restrict__ partial) {
+    float* __restrict__ partial, const int* __restrict__ page_table,
+    int n_blocks, int page_t) {
   const int b = blockIdx.x / Kv;
   const int kvh = blockIdx.x % Kv;
   const int G = H / Kv;
@@ -71,7 +91,11 @@ __global__ void __launch_bounds__(ATTN_THREADS) decode_attn_kernel(
   const int warp = tid >> 5;
   const int nwarps = ATTN_THREADS / 32;
 
-  extern __shared__ float smem[];
+  extern __shared__ int64_t smem_raw[];
+  // paged: the element offset of each row of the current tile in the
+  // pools (K and V share the table and the page layout)
+  int64_t* row_s = smem_raw;           // (TILE_S) when PAGED
+  float* smem = reinterpret_cast<float*>(smem_raw + (PAGED ? TILE_S : 0));
   float* q_s = smem;                   // (G, hd)
   float* acc_s = q_s + GH;             // (G, hd)
   float* p_s = acc_s + GH;             // (G, TILE_S)
@@ -81,10 +105,12 @@ __global__ void __launch_bounds__(ATTN_THREADS) decode_attn_kernel(
   float* red_s = alpha_s + G;          // (ATTN_THREADS)
 
   const T* qb = q + ((int64_t)b * H + (int64_t)kvh * G) * hd;
-  const TKV* kb = k + (int64_t)b * k_sb + (int64_t)kvh * hd;
-  const TKV* vb = v + (int64_t)b * v_sb + (int64_t)kvh * hd;
+  // contiguous: row s at kb + s * k_ss; paged: at kb + row_s[s - s0]
+  const TKV* kb = k + (PAGED ? 0 : (int64_t)b * k_sb) + (int64_t)kvh * hd;
+  const TKV* vb = v + (PAGED ? 0 : (int64_t)b * v_sb) + (int64_t)kvh * hd;
+  const int* pt_b = PAGED ? page_table + (int64_t)b * n_blocks : nullptr;
   int n_valid = kv_len[b];
-  n_valid = n_valid < S ? n_valid : S;
+  n_valid = n_valid < S ? n_valid : S;   // S = n_blocks * page_t when paged
 
   for (int i = tid; i < GH; i += ATTN_THREADS) {
     q_s[i] = __fmul_rn(to_f(qb[i]), scale);
@@ -98,9 +124,18 @@ __global__ void __launch_bounds__(ATTN_THREADS) decode_attn_kernel(
 
   for (int s0 = 0; s0 < n_valid; s0 += TILE_S) {
     const int ns = min(TILE_S, n_valid - s0);
+    if (PAGED) {
+      for (int sr = tid; sr < ns; sr += ATTN_THREADS) {
+        const int s = s0 + sr;
+        row_s[sr] = (int64_t)pt_b[s / page_t] * k_sb +
+                    (int64_t)(s % page_t) * k_ss;
+      }
+      __syncthreads();
+    }
     // logits: one warp per key row, the row held in registers
     for (int sr = warp; sr < ns; sr += nwarps) {
-      const TKV* krow = kb + (int64_t)(s0 + sr) * k_ss;
+      const int s = s0 + sr;
+      const TKV* krow = PAGED ? kb + row_s[sr] : kb + (int64_t)s * k_ss;
       float kr[KMAX];
 #pragma unroll
       for (int i = 0; i < KMAX; ++i) {
@@ -146,9 +181,15 @@ __global__ void __launch_bounds__(ATTN_THREADS) decode_attn_kernel(
       const int g = i / hd, d = i - g * hd;
       float a = __fmul_rn(acc_s[i], alpha_s[g]);
       const float* pg = p_s + g * TILE_S;
-      const TKV* vcol = vb + (int64_t)s0 * v_ss + d;
-      for (int sr = 0; sr < ns; ++sr)
-        a = __fmaf_rn(pg[sr], to_f(vcol[(int64_t)sr * v_ss]), a);
+      if (PAGED) {
+        const TKV* vcol = vb + d;
+        for (int sr = 0; sr < ns; ++sr)
+          a = __fmaf_rn(pg[sr], to_f(vcol[row_s[sr]]), a);
+      } else {
+        const TKV* vcol = vb + (int64_t)s0 * v_ss + d;
+        for (int sr = 0; sr < ns; ++sr)
+          a = __fmaf_rn(pg[sr], to_f(vcol[(int64_t)sr * v_ss]), a);
+      }
       acc_s[i] = a;
     }
     __syncthreads();
@@ -208,10 +249,11 @@ __global__ void __launch_bounds__(ATTN_THREADS) decode_attn_kernel(
   }
 }
 
-static size_t attn_smem_bytes(int G, int hd) {
+static size_t attn_smem_bytes(int G, int hd, bool paged) {
   return sizeof(float) *
-         (2 * (size_t)G * hd + (size_t)G * TILE_S + 3 * (size_t)G +
-          ATTN_THREADS);
+             (2 * (size_t)G * hd + (size_t)G * TILE_S + 3 * (size_t)G +
+              ATTN_THREADS) +
+         (paged ? sizeof(int64_t) * TILE_S : 0);
 }
 
 template <typename T, typename TKV>
@@ -221,21 +263,31 @@ static int launch(const void* q, const void* k, const void* v,
                   float scale, void* out, float* l_out, float* m_out,
                   int mode, const int* ids, const int* cluster_of,
                   const void* bank, int bank_dtype, const float* bank_scale,
-                  int r, float* partial, cudaStream_t stream) {
+                  int r, float* partial, const int* page_table, int n_blocks,
+                  int page_t, cudaStream_t stream) {
   const int G = H / Kv;
-  decode_attn_kernel<T, TKV><<<B * Kv, ATTN_THREADS, attn_smem_bytes(G, hd),
-                               stream>>>(
-      static_cast<const T*>(q), static_cast<const TKV*>(k),
-      static_cast<const TKV*>(v), kv_len, H, Kv, hd, S, k_sb, k_ss, v_sb, v_ss,
-      scale, static_cast<T*>(out), l_out, m_out, mode, ids, cluster_of, bank,
-      bank_dtype, bank_scale, r, partial);
+  const bool paged = page_table != nullptr;
+  const size_t smem = attn_smem_bytes(G, hd, paged);
+  if (paged)
+    decode_attn_kernel<T, TKV, true><<<B * Kv, ATTN_THREADS, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const TKV*>(k),
+        static_cast<const TKV*>(v), kv_len, H, Kv, hd, n_blocks * page_t,
+        k_sb, k_ss, v_sb, v_ss, scale, static_cast<T*>(out), l_out, m_out,
+        mode, ids, cluster_of, bank, bank_dtype, bank_scale, r, partial,
+        page_table, n_blocks, page_t);
+  else
+    decode_attn_kernel<T, TKV, false><<<B * Kv, ATTN_THREADS, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const TKV*>(k),
+        static_cast<const TKV*>(v), kv_len, H, Kv, hd, S, k_sb, k_ss, v_sb,
+        v_ss, scale, static_cast<T*>(out), l_out, m_out, mode, ids,
+        cluster_of, bank, bank_dtype, bank_scale, r, partial, nullptr, 0, 1);
   return (int)cudaGetLastError();
 }
 
 #define ATTN_ARGS                                                          \
   q, k, v, kv_len, B, H, Kv, hd, S, k_sb, k_ss, v_sb, v_ss, scale, out,    \
       l_out, m_out, mode, ids, cluster_of, bank, bank_dtype, bank_scale, r, \
-      partial, stream
+      partial, page_table, n_blocks, page_t, stream
 
 // q/out in `dtype`, k/v in `kv_dtype` (f32 or bf16 each: an f32 model
 // keeps the bf16 KV cache)
@@ -246,6 +298,7 @@ static int dispatch(int dtype, int kv_dtype, const void* q, const void* k,
                     float* m_out, int mode, const int* ids,
                     const int* cluster_of, const void* bank, int bank_dtype,
                     const float* bank_scale, int r, float* partial,
+                    const int* page_table, int n_blocks, int page_t,
                     cudaStream_t stream) {
   if (dtype == DT_BF16 && kv_dtype == DT_BF16)
     return launch<__nv_bfloat16, __nv_bfloat16>(ATTN_ARGS);
@@ -260,16 +313,27 @@ static int dispatch(int dtype, int kv_dtype, const void* q, const void* k,
 
 extern "C" {
 
+// Both entry points take an optional page table (B, n_blocks) int32: null
+// for a contiguous cache k/v (B, S, Kv, hd) with batch strides k_sb/v_sb
+// and row strides k_ss/v_ss; set for pools k/v (P, page_t, Kv, hd) of one
+// layout, with page strides in k_sb == v_sb, row strides in k_ss == v_ss,
+// and S ignored (n_blocks * page_t).
+
 // flash_decode: out (B, H, hd) in q's dtype, l/m (B, Kv, G) f32
 int flash_decode_launch(const void* q, const void* k, const void* v,
                         const int* kv_len, void* out, float* l_out,
                         float* m_out, int B, int H, int Kv, int hd, int S,
                         int64_t k_sb, int64_t k_ss, int64_t v_sb,
                         int64_t v_ss, float scale, int dtype, int kv_dtype,
+                        const int* page_table, int n_blocks, int page_t,
                         void* stream) {
-  return dispatch(dtype, kv_dtype, q, k, v, kv_len, B, H, Kv, hd, S, k_sb, k_ss, v_sb,
-                  v_ss, scale, out, l_out, m_out, MODE_NONE, nullptr, nullptr,
-                  nullptr, 0, nullptr, 0, nullptr, (cudaStream_t)stream);
+  if (page_table != nullptr &&
+      (n_blocks <= 0 || page_t <= 0 || k_sb != v_sb || k_ss != v_ss))
+    return (int)cudaErrorInvalidValue;
+  return dispatch(dtype, kv_dtype, q, k, v, kv_len, B, H, Kv, hd, S, k_sb,
+                  k_ss, v_sb, v_ss, scale, out, l_out, m_out, MODE_NONE,
+                  nullptr, nullptr, nullptr, 0, nullptr, 0, nullptr,
+                  page_table, n_blocks, page_t, (cudaStream_t)stream);
 }
 
 // attention + per-head shrink into partial (B, Kv, r) f32; cluster_of is
@@ -281,12 +345,16 @@ int fused_attn_shrink_launch(const void* q, const void* k, const void* v,
                              void* out, float* partial, int B, int H, int Kv,
                              int hd, int S, int64_t k_sb, int64_t k_ss,
                              int64_t v_sb, int64_t v_ss, float scale,
-                             int dtype, int kv_dtype, void* stream) {
+                             int dtype, int kv_dtype, const int* page_table,
+                             int n_blocks, int page_t, void* stream) {
+  if (page_table != nullptr &&
+      (n_blocks <= 0 || page_t <= 0 || k_sb != v_sb || k_ss != v_ss))
+    return (int)cudaErrorInvalidValue;
   const int mode = cluster_of == nullptr ? MODE_ROWS : MODE_COLS;
-  return dispatch(dtype, kv_dtype, q, k, v, kv_len, B, H, Kv, hd, S, k_sb, k_ss, v_sb,
-                  v_ss, scale, out, nullptr, nullptr, mode, ids, cluster_of,
-                  bank, bank_dtype, bank_scale, r, partial,
-                  (cudaStream_t)stream);
+  return dispatch(dtype, kv_dtype, q, k, v, kv_len, B, H, Kv, hd, S, k_sb,
+                  k_ss, v_sb, v_ss, scale, out, nullptr, nullptr, mode, ids,
+                  cluster_of, bank, bank_dtype, bank_scale, r, partial,
+                  page_table, n_blocks, page_t, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -26,6 +26,12 @@ serves both precisions.
 plain versions (``ref.fused_decode_*_ref``) use the bf16-rounded ``out``:
 the two differ by about one bf16 rounding of ``out`` times ||A||.
 
+The paged variants (replacing ``fused_decode_lora_paged`` and
+``fused_decode_jd_paged``) give the first launch a page table, so that it
+reads K/V from a pool of pages as ``flash_decode_paged`` does; the expand
+launch is the same.  On equal logical content their ``out`` and ``delta``
+are bit-identical with the contiguous variants'.
+
 A CPU tensor goes to the plain version; a CUDA tensor launches the kernels
 or raises.  ``ids`` (and ``cluster_of``) must index their banks.
 """
@@ -37,10 +43,13 @@ import torch
 
 from . import _build
 from . import ref
-from .flash_decode import check_attention_args
+from .flash_decode import (check_attention_args, check_paged_args,
+                           contiguous_launch_args, paged_launch_args)
 
 LAUNCHES_LORA = 0        # kernel launches (two per call) since the last reset
 LAUNCHES_JD = 0
+LAUNCHES_LORA_PAGED = 0  # the paged variants' launches (two per call)
+LAUNCHES_JD_PAGED = 0
 MAX_RANK = 128
 _ONES: Dict[Tuple, torch.Tensor] = {}
 
@@ -75,8 +84,12 @@ def _check_ids(name: str, t: torch.Tensor, n: int, device) -> None:
 
 
 def _attn_shrink(q, k, v, kv_len, ids, cluster_of, bank, bank_scale, r,
-                 dims):
-    B, H, Kv, hd, S = dims
+                 dims, addr):
+    """The first launch: attention and the per-head shrink.  ``addr``:
+    ``flash_decode.contiguous_launch_args`` or ``paged_launch_args``.
+    Returns (out, partial (B, Kv, r) f32)."""
+    B, H, Kv, hd = dims
+    S, k_sb, k_ss, v_sb, v_ss, (pt, n_blocks, page_t) = addr
     out = torch.empty_like(q)
     partial = torch.empty((B, Kv, r), dtype=torch.float32, device=q.device)
     err = _build.lib().fused_attn_shrink_launch(
@@ -84,9 +97,9 @@ def _attn_shrink(q, k, v, kv_len, ids, cluster_of, bank, bank_scale, r,
         ids.data_ptr(), None if cluster_of is None else cluster_of.data_ptr(),
         bank.data_ptr(), _build.dtype_code(bank.dtype), bank_scale.data_ptr(),
         r, out.data_ptr(), partial.data_ptr(), B, H, Kv, hd, S,
-        k.stride(0), k.stride(1), v.stride(0), v.stride(1), hd ** -0.5,
+        k_sb, k_ss, v_sb, v_ss, hd ** -0.5,
         _build.dtype_code(q.dtype), _build.dtype_code(k.dtype),
-        _build.stream_ptr(q.device))
+        pt, n_blocks, page_t, _build.stream_ptr(q.device))
     _build.check(err, "fused_attn_shrink")
     return out, partial
 
@@ -107,22 +120,10 @@ def _expand(partial, ids, cluster_of, sigma, w, w_scale, d_out):
     return delta
 
 
-def fused_decode_lora(q, k, v, kv_len, ids, A, B,
-                      a_scale: Optional[torch.Tensor] = None,
-                      b_scale: Optional[torch.Tensor] = None):
-    """Fused decode attention + raw-LoRA output delta.
-
-    q: (B, H, hd); k/v: (B, S, Kv, hd) (row-contiguous views allowed);
-    kv_len/ids: (B,) int32; A: (n, r, H*hd) fp or int8 with a_scale
-    (n, r, 1); B: (n, d_out, r) fp or int8 with b_scale (n, d_out, 1).
-    Returns (out (B, H, hd), delta (B, d_out) f32), delta un-scaled by the
-    LoRA ``scaling``."""
-    global LAUNCHES_LORA
-    if q.device.type == "cpu":
-        return ref.fused_decode_lora_ref(q, k, v, kv_len, ids, A, B,
-                                         a_scale, b_scale)
-    dims = check_attention_args(q, k, v, kv_len)
-    Bt, H, Kv, hd, S = dims
+def _lora(q, k, v, kv_len, ids, A, B, a_scale, b_scale, dims, addr):
+    """Check the raw-LoRA operands (fp banks get scales of ones), then the
+    two launches; ``addr`` as :func:`_attn_shrink` takes it."""
+    Bt, H, Kv, hd = dims
     n, r, d_attn = A.shape
     d_out = B.shape[1]
     dev = q.device
@@ -138,28 +139,15 @@ def fused_decode_lora(q, k, v, kv_len, ids, A, B,
     _check_scale("b_scale", b_scale, (n, d_out, 1), dev)
     _check_ids("ids", ids, Bt, dev)
     out, partial = _attn_shrink(q, k, v, kv_len, ids, None, A, a_scale, r,
-                                dims)
-    LAUNCHES_LORA += 1
-    delta = _expand(partial, ids, None, None, B, b_scale, d_out)
-    LAUNCHES_LORA += 1
-    return out, delta
+                                dims, addr)
+    return out, _expand(partial, ids, None, None, B, b_scale, d_out)
 
 
-def fused_decode_jd(q, k, v, kv_len, ids, U, V, sigma, cluster_of,
-                    u_scale: Optional[torch.Tensor] = None,
-                    v_scale: Optional[torch.Tensor] = None):
-    """Fused decode attention + compressed shared-basis (jd) output delta.
-
-    U: (k, d_out, r) / V: (k, H*hd, r) fp or int8 with u_scale (k, d_out, 1)
-    / v_scale (k, 1, r); sigma: per-adapter (n, r) diag or (n, r, r) full,
-    bf16 or f32; cluster_of: (n,) int32.  Returns (out (B, H, hd),
-    delta (B, d_out) f32)."""
-    global LAUNCHES_JD
-    if q.device.type == "cpu":
-        return ref.fused_decode_jd_ref(q, k, v, kv_len, ids, U, V, sigma,
-                                       cluster_of, u_scale, v_scale)
-    dims = check_attention_args(q, k, v, kv_len)
-    Bt, H, Kv, hd, S = dims
+def _jd(q, k, v, kv_len, ids, U, V, sigma, cluster_of, u_scale, v_scale,
+        dims, addr):
+    """Check the compressed-basis operands (fp bases get scales of ones),
+    then the two launches."""
+    Bt, H, Kv, hd = dims
     kcl, d_attn, r = V.shape
     d_out = U.shape[1]
     n = sigma.shape[0]
@@ -182,8 +170,87 @@ def fused_decode_jd(q, k, v, kv_len, ids, U, V, sigma, cluster_of,
     _check_ids("ids", ids, Bt, dev)
     _check_ids("cluster_of", cluster_of, n, dev)
     out, partial = _attn_shrink(q, k, v, kv_len, ids, cluster_of, V, v_scale,
-                                r, dims)
-    LAUNCHES_JD += 1
-    delta = _expand(partial, ids, cluster_of, sigma, U, u_scale, d_out)
-    LAUNCHES_JD += 1
-    return out, delta
+                                r, dims, addr)
+    return out, _expand(partial, ids, cluster_of, sigma, U, u_scale, d_out)
+
+
+def fused_decode_lora(q, k, v, kv_len, ids, A, B,
+                      a_scale: Optional[torch.Tensor] = None,
+                      b_scale: Optional[torch.Tensor] = None):
+    """Fused decode attention + raw-LoRA output delta.
+
+    q: (B, H, hd); k/v: (B, S, Kv, hd) (row-contiguous views allowed);
+    kv_len/ids: (B,) int32; A: (n, r, H*hd) fp or int8 with a_scale
+    (n, r, 1); B: (n, d_out, r) fp or int8 with b_scale (n, d_out, 1).
+    Returns (out (B, H, hd), delta (B, d_out) f32), delta un-scaled by the
+    LoRA ``scaling``."""
+    global LAUNCHES_LORA
+    if q.device.type == "cpu":
+        return ref.fused_decode_lora_ref(q, k, v, kv_len, ids, A, B,
+                                         a_scale, b_scale)
+    dims = check_attention_args(q, k, v, kv_len)[:4]
+    res = _lora(q, k, v, kv_len, ids, A, B, a_scale, b_scale, dims,
+                contiguous_launch_args(k, v))
+    LAUNCHES_LORA += 2
+    return res
+
+
+def fused_decode_lora_paged(q, k_pages, v_pages, page_table, kv_len, ids, A,
+                            B, a_scale: Optional[torch.Tensor] = None,
+                            b_scale: Optional[torch.Tensor] = None):
+    """:func:`fused_decode_lora` over a paged pool: k/v_pages (P, page_t,
+    Kv, hd) and page_table (B, n_blocks) int32, as ``flash_decode_paged``
+    takes them."""
+    global LAUNCHES_LORA_PAGED
+    if q.device.type == "cpu":
+        return ref.fused_decode_lora_paged_ref(
+            q, k_pages, v_pages, page_table, kv_len, ids, A, B, a_scale,
+            b_scale)
+    *dims, page_t, n_blocks = check_paged_args(q, k_pages, v_pages,
+                                               page_table, kv_len)
+    res = _lora(q, k_pages, v_pages, kv_len, ids, A, B, a_scale, b_scale,
+                dims, paged_launch_args(k_pages, v_pages, page_table, page_t,
+                                        n_blocks))
+    LAUNCHES_LORA_PAGED += 2
+    return res
+
+
+def fused_decode_jd(q, k, v, kv_len, ids, U, V, sigma, cluster_of,
+                    u_scale: Optional[torch.Tensor] = None,
+                    v_scale: Optional[torch.Tensor] = None):
+    """Fused decode attention + compressed shared-basis (jd) output delta.
+
+    U: (k, d_out, r) / V: (k, H*hd, r) fp or int8 with u_scale (k, d_out, 1)
+    / v_scale (k, 1, r); sigma: per-adapter (n, r) diag or (n, r, r) full,
+    bf16 or f32; cluster_of: (n,) int32.  Returns (out (B, H, hd),
+    delta (B, d_out) f32)."""
+    global LAUNCHES_JD
+    if q.device.type == "cpu":
+        return ref.fused_decode_jd_ref(q, k, v, kv_len, ids, U, V, sigma,
+                                       cluster_of, u_scale, v_scale)
+    dims = check_attention_args(q, k, v, kv_len)[:4]
+    res = _jd(q, k, v, kv_len, ids, U, V, sigma, cluster_of, u_scale,
+              v_scale, dims, contiguous_launch_args(k, v))
+    LAUNCHES_JD += 2
+    return res
+
+
+def fused_decode_jd_paged(q, k_pages, v_pages, page_table, kv_len, ids, U, V,
+                          sigma, cluster_of,
+                          u_scale: Optional[torch.Tensor] = None,
+                          v_scale: Optional[torch.Tensor] = None):
+    """:func:`fused_decode_jd` over a paged pool (the layout of
+    :func:`fused_decode_lora_paged`)."""
+    global LAUNCHES_JD_PAGED
+    if q.device.type == "cpu":
+        return ref.fused_decode_jd_paged_ref(
+            q, k_pages, v_pages, page_table, kv_len, ids, U, V, sigma,
+            cluster_of, u_scale, v_scale)
+    *dims, page_t, n_blocks = check_paged_args(q, k_pages, v_pages,
+                                               page_table, kv_len)
+    res = _jd(q, k_pages, v_pages, kv_len, ids, U, V, sigma, cluster_of,
+              u_scale, v_scale, dims,
+              paged_launch_args(k_pages, v_pages, page_table, page_t,
+                                n_blocks))
+    LAUNCHES_JD_PAGED += 2
+    return res

@@ -14,7 +14,8 @@ import numpy as np
 import torch
 
 NEG_INF = -1e30
-QMAX8 = 127
+# symmetric quantization's largest level per bit width (kv_quant.QMAX)
+QMAX = {8: 127, 4: 7}
 
 
 def _attend(q, k, v, kv_len):
@@ -97,6 +98,49 @@ def fused_decode_jd_ref(q, k, v, kv_len, ids, U, V, sigma, cluster_of,
     return out, delta
 
 
+# -- paged KV ------------------------------------------------------------------
+
+
+def gather_pages_ref(pages: torch.Tensor, page_table: torch.Tensor
+                     ) -> torch.Tensor:
+    """A contiguous KV layout from a paged pool.
+
+    pages: (P, page_t, Kv, hd) physical pages; page_table: (B, n_blocks)
+    int32, sequence b's logical block s in page ``page_table[b, s]``.
+    Returns (B, n_blocks * page_t, Kv, hd), the layout the contiguous
+    functions take."""
+    B, n_blocks = page_table.shape
+    g = pages[page_table.long()]             # (B, n_blocks, page_t, Kv, hd)
+    return g.reshape(B, n_blocks * pages.shape[1], *pages.shape[2:])
+
+
+def flash_decode_paged_ref(q, k_pages, v_pages, page_table, kv_len=None):
+    """Paged decode attention: gather to contiguous, then
+    :func:`flash_decode_ref`; returns (out, l, m) as it does."""
+    return flash_decode_ref(q, gather_pages_ref(k_pages, page_table),
+                            gather_pages_ref(v_pages, page_table), kv_len)
+
+
+def fused_decode_lora_paged_ref(q, k_pages, v_pages, page_table, kv_len,
+                                ids, A, B, a_scale=None, b_scale=None,
+                                f32_delta: bool = False):
+    """:func:`fused_decode_lora_ref` over a paged pool."""
+    return fused_decode_lora_ref(
+        q, gather_pages_ref(k_pages, page_table),
+        gather_pages_ref(v_pages, page_table), kv_len, ids, A, B, a_scale,
+        b_scale, f32_delta)
+
+
+def fused_decode_jd_paged_ref(q, k_pages, v_pages, page_table, kv_len, ids,
+                              U, V, sigma, cluster_of, u_scale=None,
+                              v_scale=None, f32_delta: bool = False):
+    """:func:`fused_decode_jd_ref` over a paged pool."""
+    return fused_decode_jd_ref(
+        q, gather_pages_ref(k_pages, page_table),
+        gather_pages_ref(v_pages, page_table), kv_len, ids, U, V, sigma,
+        cluster_of, u_scale, v_scale, f32_delta)
+
+
 def adapter_quant_ref(w: torch.Tensor, axis: int = -1
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric per-output-channel int8: one f32 scale per channel,
@@ -106,15 +150,60 @@ def adapter_quant_ref(w: torch.Tensor, axis: int = -1
     absmax = xf.abs().amax(dim=axis, keepdim=True)
     # a tensor divisor: PyTorch's CUDA division by a Python scalar
     # multiplies by its reciprocal, which is not the IEEE quotient
-    qmax = torch.full_like(absmax, float(QMAX8))
+    qmax = torch.full_like(absmax, float(QMAX[8]))
     scale = torch.where(absmax > 0, absmax / qmax, torch.ones_like(absmax))
-    q = torch.clamp(torch.round(xf / scale), -QMAX8, QMAX8)
+    q = torch.clamp(torch.round(xf / scale), -QMAX[8], QMAX[8])
     return q.to(torch.int8), scale
 
 
 def adapter_dequant_ref(q: torch.Tensor, scale: torch.Tensor,
                         out_dtype=torch.float32) -> torch.Tensor:
     return (q.float() * scale.float()).to(out_dtype)
+
+
+# -- KV wire quantization -------------------------------------------------------
+
+
+def kv_quant_ref(x: torch.Tensor, bits: int = 8
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-channel symmetric quantization of a KV block x (T, C): one f32
+    scale per channel (absmax over the T tokens / qmax, 1 where the
+    channel is 0), values rounded half to even and clipped to [-qmax,
+    qmax].  Returns (q (T, C) int8, scale (1, C) f32); int4 values are
+    held in int8 here (:func:`pack_int4` packs them)."""
+    qm = QMAX[bits]
+    xf = x.float()
+    absmax = xf.abs().amax(dim=0, keepdim=True)
+    # a tensor divisor: PyTorch's CUDA division by a Python scalar
+    # multiplies by its reciprocal, which is not the IEEE quotient
+    qmax = torch.full_like(absmax, float(qm))
+    scale = torch.where(absmax > 0, absmax / qmax, torch.ones_like(absmax))
+    q = torch.clamp(torch.round(xf / scale), -qm, qm)
+    return q.to(torch.int8), scale
+
+
+def kv_dequant_ref(q: torch.Tensor, scale: torch.Tensor,
+                   out_dtype=torch.float32) -> torch.Tensor:
+    """Values (T, C) int8 times per-channel scales, rounded once to
+    ``out_dtype``."""
+    return (q.float() * scale.float()).to(out_dtype)
+
+
+def pack_int4(q: torch.Tensor) -> torch.Tensor:
+    """int4 values (T, C) in int8, T even -> (T/2, C) uint8: each token
+    pair's two's-complement nibbles in one byte, the even token low."""
+    qi = q.to(torch.int32) & 0xF
+    return (qi[0::2] | (qi[1::2] << 4)).to(torch.uint8)
+
+
+def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`pack_int4`: (T/2, C) uint8 -> (T, C) int8, each
+    nibble sign-extended as ``((v & 0xF) ^ 8) - 8``."""
+    v = packed.to(torch.int32)
+    lo = ((v & 0xF) ^ 8) - 8
+    hi = ((v >> 4) ^ 8) - 8
+    rows, C = v.shape
+    return torch.stack([lo, hi], dim=1).reshape(2 * rows, C).to(torch.int8)
 
 
 # -- token-flattened multi-adapter application ------------------------------

@@ -2,12 +2,13 @@
 
 Two executors share one engine loop:
 
-- :class:`CostModelExecutor` — roofline-calibrated analytic step times for
-  the production target (v5e serving slice); used for the paper-scale
-  throughput studies (Figs. 1 & 4) where 1000s of adapters are simulated.
-- :class:`RealModelExecutor` — actually runs prefill/decode of a (reduced)
-  model on the host with batched LoRA application; used by the end-to-end
-  example and tests (real logits, real adapter math, wall-clock timing).
+- :class:`CostModelExecutor` — roofline analytic step times for one
+  serving replica (:class:`ServingHardware`: one NVIDIA H100 SXM's data
+  sheet figures); used for the paper-scale throughput studies (Figs. 1 &
+  4) where 1000s of adapters are simulated.
+- ``serving/real_executor.py::RealModelExecutor`` — actually runs
+  prefill/decode of the model on the card (or the CPU) with batched LoRA
+  application (real logits, real adapter math, wall-clock timing).
 
 Serving modes:
   "lora"  — uncompressed multi-LoRA baseline (vLLM-style swap on miss)
@@ -31,23 +32,15 @@ from .scheduler import Scheduler, SchedulerConfig
 # ---------------------------------------------------------------------------
 
 
-# fused-path cost constants re-derived from wall-clock measurement: the
-# affine decode-step fit (t = step_overhead + per_slot * batch) from
-# benchmarks/real_decode.py's `derived` cell, committed in
-# benchmarks/baselines/BENCH_real.json.  tests/test_hetero.py fails if
-# these and the committed JSON drift apart.  They parameterize
-# ServingHardware.real_calibrated(), NOT the roofline defaults below —
-# changing the live defaults would move every committed baseline.
-REAL_DECODE_STEP_OVERHEAD_S = 0.0012266824722044262
-REAL_DECODE_PER_SLOT_S = 0.0002450057222126311
-
-
 @dataclasses.dataclass
 class ServingHardware:
-    """One serving replica (e.g. a 4-chip v5e slice)."""
-    peak_flops: float = 4 * 197e12
-    hbm_bw: float = 4 * 819e9
-    hbm_bytes: float = 4 * 16e9
+    """One serving replica: by default one NVIDIA H100 SXM, with NVIDIA's
+    data-sheet figures (dense bf16 tensor-core rate, HBM bandwidth as
+    ``kernels/checks.HBM_BYTES_PER_S``, HBM size).  No measured fit of the
+    card's decode step replaces ``step_overhead`` yet."""
+    peak_flops: float = 989e12
+    hbm_bw: float = 3.35e12
+    hbm_bytes: float = 80e9
     mem_cap_frac: float = 0.4        # paper: cap at 40% of device memory
     mfu_prefill: float = 0.45
     step_overhead: float = 3e-4      # host/dispatch per decode step
@@ -69,17 +62,6 @@ class ServingHardware:
             hbm_bytes=(slice_type.hbm_bytes
                        if slice_type.hbm_bytes is not None
                        else self.hbm_bytes))
-
-    @classmethod
-    def real_calibrated(cls, **overrides) -> "ServingHardware":
-        """A replica whose per-step dispatch overhead comes from the
-        committed wall-clock fit of the fused decode path
-        (:data:`REAL_DECODE_STEP_OVERHEAD_S`) instead of the roofline
-        guess.  The per-slot slope of the same fit is exported as
-        :data:`REAL_DECODE_PER_SLOT_S` for studies that want the full
-        affine model."""
-        overrides.setdefault("step_overhead", REAL_DECODE_STEP_OVERHEAD_S)
-        return cls(**overrides)
 
 
 @dataclasses.dataclass

@@ -3,8 +3,10 @@ paged HBM pool shared by KV blocks and adapter weights, and the per-mode
 counter merge.
 
 A copy of the matching definitions in the JAX package's
-``serving/resources.py``; the hardware budget, the KV fabric and the wire
-compression policies are not part of this package yet.
+``serving/resources.py``, with the KV wire compression's configuration
+(:class:`KVCompressionConfig`, priced from the packed output of
+``kernels/kv_quant.py``); the hardware budget, the KV fabric and the
+adaptive compression policy are not part of this package yet.
 """
 from __future__ import annotations
 
@@ -13,9 +15,9 @@ import math
 from typing import Callable, Dict, Optional
 
 # tokens per KV page — one page is one 128-token KV block, the same
-# granularity the wire-quantization kernels use (kv_quant.BLOCK_T; the sim
-# stays jax-free so the constant is duplicated and tests/test_paged.py
-# asserts the two agree)
+# granularity the wire-quantization kernels use (kv_quant.BLOCK_T; the
+# serving code stays free of torch, so the constant is duplicated and
+# tests/test_torch_kvquant.py asserts the two agree)
 PAGE_TOKENS = 128
 
 
@@ -243,3 +245,131 @@ def merge_mode_dict(into: Dict, other: Dict) -> None:
     decode per-mode stats dicts)."""
     for k, v in other.items():
         into[k] = into.get(k, 0) + v
+
+
+# ---------------------------------------------------------------------------
+# KV wire compression
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class KVCompressionConfig:
+    """Compress-then-serve applied to the KV handoff itself: prefill
+    quantizes (or projects) each produced KV cache before it goes on the
+    fabric, and the decode replica dequantizes it.
+
+    Modes:
+
+      ``int8`` / ``int4`` — per-channel symmetric quantization.  The wire
+        ratios and worst-case error bounds are not free parameters: they
+        are the packed output of ``kernels/kv_quant.py`` (values + one f32
+        scale per channel per 128-token block), and
+        tests/test_torch_kvquant.py asserts this class and the kernel
+        module agree.
+      ``lowrank`` — keep ``lowrank_ratio`` of the KV channels through a
+        learned projection; the wire ratio is the kept fraction, and no
+        static error bound is exported.
+
+    Cost model: quantize/dequantize stream the block once (read one side,
+    write the other), so both are bound by memory bandwidth —
+    ``overhead + (raw + wire) / mem_bw`` — with ``mem_bw`` the H100's HBM
+    rate, as ``ServingHardware.hbm_bw``.
+    """
+
+    mode: str = "int8"               # int8 | int4 | lowrank
+    lowrank_ratio: float = 0.25      # kept channel fraction (lowrank only)
+    # (de)quant streaming bandwidth: one H100 SXM's HBM, 3.35 TB/s (NVIDIA's
+    # data sheet); mirrors engine.ServingHardware.hbm_bw, kept in sync by
+    # tests/test_torch_kvquant.py
+    mem_bw: float = 3.35e12
+    # the launch and wrapper cost per handoff, s: one kv_quantize call's
+    # CUDA-event time less its device time on a (128, 65536) bf16 block
+    # (chip_smoke.py's kv_quantize row, launch_overhead_ms; NVIDIA H100
+    # 80GB HBM3, 700.00 W): the median of three runs' 0.0091, 0.0155 and
+    # 0.0319 ms (the host's share moves from run to run)
+    kernel_overhead: float = 1.55e-5
+
+    MODES = ("int8", "int4", "lowrank")
+    # kernels/kv_quant.py's WIRE_RATIO and ERROR_BOUND at the canonical
+    # 128-token block, duplicated so this module imports no torch
+    WIRE_RATIO = {"int8": 33 / 64, "int4": 17 / 64}
+    ERROR_BOUND = {"int8": 1 / 254, "int4": 1 / 14}
+    # packed-artifact structure, per channel: quantized values (1/2 or 1/4
+    # of the raw bf16 bytes) plus one f32 scale per BLOCK_TOKENS tokens —
+    # a tail block smaller than BLOCK_TOKENS carries a full scale, so its
+    # wire ratio is strictly worse than the full-block aggregate above
+    VALUE_RATIO = {"int8": 1 / 2, "int4": 1 / 4}
+    BLOCK_TOKENS = PAGE_TOKENS       # kv_quant.BLOCK_T
+    BLOCK_RAW_BYTES = 256            # one channel-block of bf16 tokens
+    SCALE_BYTES = 4                  # one f32 scale per channel per block
+
+    def __post_init__(self):
+        if self.mode not in self.MODES:
+            raise ValueError(f"unknown compression mode {self.mode!r}; "
+                             f"one of {self.MODES}")
+        if not 0.0 < self.lowrank_ratio <= 1.0:
+            raise ValueError("lowrank_ratio must be in (0, 1]")
+        if self.mem_bw <= 0:
+            raise ValueError("mem_bw must be > 0")
+
+    @property
+    def wire_ratio(self) -> float:
+        if self.mode == "lowrank":
+            return self.lowrank_ratio
+        return self.WIRE_RATIO[self.mode]
+
+    @property
+    def error_bound(self) -> Optional[float]:
+        """Worst-case per-channel relative error (None for lowrank)."""
+        return self.ERROR_BOUND.get(self.mode)
+
+    def wire_bytes(self, raw_bytes: int,
+                   bytes_per_token: Optional[int] = None) -> int:
+        """On-the-wire size of one raw KV span, block-granularly.
+
+        Scales are per channel per ``BLOCK_TOKENS``-token block, so a
+        partial tail block pays a full scale: with ``bytes_per_token``
+        known (see :func:`kv_bytes_per_token`) the scale count is exact,
+        ``ceil(tokens / 128) * channels``; without it the span is modeled
+        as per-channel 256-raw-byte blocks, one scale per full-or-partial
+        block.  Both reduce to the aggregate ``WIRE_RATIO`` on
+        block-aligned spans."""
+        if raw_bytes <= 0:
+            return 0
+        if self.mode == "lowrank":
+            return max(1, math.ceil(raw_bytes * self.lowrank_ratio))
+        value_bytes = math.ceil(raw_bytes * self.VALUE_RATIO[self.mode])
+        if (bytes_per_token is not None and bytes_per_token >= 2
+                and bytes_per_token % 2 == 0):
+            n_channels = bytes_per_token // 2
+            n_blocks = math.ceil(
+                raw_bytes / (bytes_per_token * self.BLOCK_TOKENS))
+            return value_bytes + self.SCALE_BYTES * n_blocks * n_channels
+        return (value_bytes
+                + self.SCALE_BYTES * math.ceil(raw_bytes
+                                               / self.BLOCK_RAW_BYTES))
+
+    def compress_time(self, raw_bytes: int,
+                      bytes_per_token: Optional[int] = None) -> float:
+        """Prefill-side quantize/project cost for one KV cache."""
+        if raw_bytes <= 0:
+            return 0.0
+        wire = self.wire_bytes(raw_bytes, bytes_per_token)
+        return self.kernel_overhead + (raw_bytes + wire) / self.mem_bw
+
+    def decompress_time(self, raw_bytes: int,
+                        bytes_per_token: Optional[int] = None) -> float:
+        """Decode-side dequantize cost (same streaming roofline)."""
+        return self.compress_time(raw_bytes, bytes_per_token)
+
+
+def kv_bytes_per_token(nbytes: int, prompt_len: int) -> Optional[int]:
+    """Recover the bf16 KV bytes/token of a handoff from its request, or
+    None when `nbytes` does not decompose into whole per-token channels
+    (hand-built executors with synthetic KV sizes fall back to the
+    byte-granular block model)."""
+    if prompt_len > 0 and nbytes > 0 and nbytes % prompt_len == 0:
+        bpt = nbytes // prompt_len
+        if bpt % 2 == 0:
+            return bpt
+    return None

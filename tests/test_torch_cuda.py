@@ -257,3 +257,166 @@ def test_grouped_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(TypeError):                      # not int8
         aq_mod.adapter_dequantize(torch.zeros((2, 4, 6), device=cuda),
                                   torch.ones((2, 4, 1), device=cuda))
+
+
+# -- paged KV decode and KV wire quantization ---------------------------------
+
+PAGED_SHAPES = [  # B, H, Kv, hd, s_max, bucket, kv_len
+    (8, 32, 8, 128, 160, 128, [1, 7, 63, 64, 65, 100, 127, 128]),
+    (8, 32, 8, 128, 2048, 2048, [1024, 1500, 2048, 1100, 1337, 2000, 1, 64]),
+    (3, 4, 1, 64, 300, 256, [200, 256, 5]),
+]
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("page_t", [16, 128])
+@pytest.mark.parametrize("shape", PAGED_SHAPES)
+def test_paged_equals_contiguous_bitwise(cuda, shape, page_t, kv_dtype,
+                                         quant):
+    """All three paged variants against the contiguous kernels on the same
+    logical content: out, l, m, the shrink's partials and delta bit for
+    bit, over a permuted table in a pool with spare pages."""
+    gen = torch.Generator(device=cuda).manual_seed(page_t + len(shape))
+    B, H, Kv, hd, s_max, bucket, kv_len = shape
+    case = checks.attention_case(B, H, Kv, hd, s_max, bucket, kv_len,
+                                 torch.bfloat16, gen, cuda,
+                                 kv_dtype=kv_dtype)
+    case["ids"] = torch.randint(0, 5, (B,), generator=gen, device=cuda,
+                                dtype=torch.int32)
+    pc = checks.paged_case(case, page_t, 37, gen)
+    before = (fd_mod.LAUNCHES_PAGED, fu_mod.LAUNCHES_LORA_PAGED,
+              fu_mod.LAUNCHES_JD_PAGED)
+    checks.check_flash_decode_paged(pc)
+    lb = checks.lora_banks(5, 16, H * hd, 256, torch.bfloat16, gen, cuda,
+                           quant)
+    checks.check_fused_lora_paged(pc, lb)
+    jb = checks.jd_banks(2, 5, 16, H * hd, 256, torch.bfloat16, gen, cuda,
+                         quant, diag=False)
+    checks.check_fused_jd_paged(pc, jb)
+    assert (fd_mod.LAUNCHES_PAGED, fu_mod.LAUNCHES_LORA_PAGED,
+            fu_mod.LAUNCHES_JD_PAGED) == (before[0] + 1, before[1] + 2,
+                                          before[2] + 2)
+    # the first launch's partials, paged against contiguous
+    from repro_torch.kernels.flash_decode import (contiguous_launch_args,
+                                                  paged_launch_args)
+    dims = (B, H, Kv, hd)
+    a_scale = lb["a_scale"] if quant else torch.ones(
+        (5, 16, 1), device=cuda)
+    common = (pc["kv_len"], pc["ids"], None, lb["A"], a_scale, 16, dims)
+    _, p_part = fu_mod._attn_shrink(
+        pc["q"], pc["k_pages"], pc["v_pages"], *common,
+        paged_launch_args(pc["k_pages"], pc["v_pages"], pc["page_table"],
+                          page_t, pc["page_table"].shape[1]))
+    _, c_part = fu_mod._attn_shrink(
+        pc["q"], pc["k_logical"], pc["v_logical"], *common,
+        contiguous_launch_args(pc["k_logical"], pc["v_logical"]))
+    assert torch.equal(p_part, c_part)
+    torch.cuda.synchronize()
+
+
+def test_paged_entries_past_kv_len_are_never_read(cuda):
+    """Table entries past ceil(kv_len / page_t) may hold anything: the
+    kernel never reads them (the TPU kernel fetches and masks them)."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    case = checks.attention_case(4, 8, 2, 64, 256, 256, [10, 256, 100, 1],
+                                 torch.bfloat16, gen, cuda)
+    pc = checks.paged_case(case, 16, 3, gen)
+    want = _paged_run(pc)
+    table = pc["page_table"].clone()
+    for b, n in enumerate([10, 256, 100, 1]):
+        table[b, -(-n // 16):] = 2 ** 30           # far outside the pool
+    got = _paged_run(dict(pc, page_table=table))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    torch.cuda.synchronize()
+
+
+def _paged_run(pc):
+    from repro_torch.kernels.flash_decode import flash_decode_paged
+    return flash_decode_paged(pc["q"], pc["k_pages"], pc["v_pages"],
+                              pc["page_table"], pc["kv_len"])
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("T,C", [(128, 65536), (128, 256), (64, 131),
+                                 (32, 384), (6, 33), (2, 1)])
+def test_kv_quant_equals_plain(cuda, T, C, dtype, bits):
+    """Packed bytes, scales and both output types bit for bit; odd C; a
+    zero channel, exact halves; and the round trip within ERROR_BOUND."""
+    from repro_torch.kernels import kv_quant as kq
+    gen = torch.Generator(device=cuda).manual_seed(T + C)
+    x = torch.randn((T, C), generator=gen, device=cuda)
+    halves = torch.tensor([0.5, 1.5, -2.5, 3.5], device=cuda)
+    x.view(-1)[:4] = halves[:min(4, x.numel())]
+    x[:, -1] = 0
+    x = x.to(dtype)
+    before = (kq.LAUNCHES_QUANT, kq.LAUNCHES_DEQUANT)
+    res = checks.check_kv_quantize(x, bits)
+    for od in (torch.float32, torch.bfloat16):
+        out = checks.check_kv_dequantize(res["packed"], res["scales"], bits,
+                                         od)["out"]
+    assert (kq.LAUNCHES_QUANT, kq.LAUNCHES_DEQUANT) == (before[0] + 1,
+                                                        before[1] + 2)
+    deq = kq.kv_dequantize(res["packed"], res["scales"], bits)
+    checks.check_kv_error(x, deq, bits)
+    assert out.shape == (T, C)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_kv_quant_zero_block(cuda, bits):
+    from repro_torch.kernels import kv_quant as kq
+    x = torch.zeros((128, 300), device=cuda, dtype=torch.bfloat16)
+    res = checks.check_kv_quantize(x, bits)
+    assert torch.equal(res["scales"], torch.ones((1, 300), device=cuda))
+    assert float(kq.kv_dequantize(res["packed"], res["scales"],
+                                  bits).abs().max()) == 0.0
+
+
+def test_measured_wire_ratio_on_the_card(cuda):
+    from repro_torch.kernels import kv_quant as kq
+    from repro_torch.serving.resources import KVCompressionConfig
+    for bits, mode in ((8, "int8"), (4, "int4")):
+        assert kq.measured_wire_ratio(bits) == \
+            KVCompressionConfig.WIRE_RATIO[mode]
+
+
+def test_paged_and_wire_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    from repro_torch.kernels import kv_quant as kq
+    from repro_torch.kernels.flash_decode import flash_decode_paged
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    case = checks.attention_case(2, 8, 2, 64, 64, 64, [64, 30],
+                                 torch.bfloat16, gen, cuda)
+    pc = checks.paged_case(case, 16, 2, gen)
+    q, kp, vp, pt, kl = (pc[x] for x in ("q", "k_pages", "v_pages",
+                                         "page_table", "kv_len"))
+    with pytest.raises(ValueError):                     # pool not contiguous
+        flash_decode_paged(q, kp.transpose(0, 1).contiguous().transpose(
+            0, 1), vp, pt, kl)
+    with pytest.raises(ValueError):                     # int64 table
+        flash_decode_paged(q, kp, vp, pt.long(), kl)
+    with pytest.raises(ValueError):                     # table on the CPU
+        flash_decode_paged(q, kp, vp, pt.cpu(), kl)
+    with pytest.raises(ValueError):                     # table rows != B
+        flash_decode_paged(q, kp, vp, pt[:1].contiguous(), kl)
+    with pytest.raises(ValueError):                     # pools differ
+        flash_decode_paged(q, kp, vp[:, :8].contiguous(), pt, kl)
+    banks = checks.lora_banks(3, 8, 8 * 64, 32, torch.bfloat16, gen, cuda,
+                              False)
+    with pytest.raises(ValueError):
+        fu_mod.fused_decode_lora_paged(q, kp, vp, pt.long(), kl,
+                                       torch.zeros(2, dtype=torch.int32,
+                                                   device=cuda),
+                                       banks["A"], banks["B"])
+    with pytest.raises(ValueError):                     # odd T under int4
+        kq.kv_quantize(torch.zeros((31, 64), device=cuda), 4)
+    with pytest.raises(ValueError):                     # not contiguous
+        kq.kv_quantize(torch.zeros((64, 32), device=cuda).T, 8)
+    with pytest.raises(TypeError):                      # fp16 block
+        kq.kv_quantize(torch.zeros((32, 64), device=cuda).half(), 8)
+    with pytest.raises(TypeError):                      # int8 values as int4
+        kq.kv_dequantize(torch.zeros((16, 64), dtype=torch.int8,
+                                     device=cuda),
+                         torch.ones((1, 64), device=cuda), 4)
