@@ -48,7 +48,9 @@ Phases (any failure ends the script with a non-zero exit code):
    on the full blocks and at ``KVCompressionConfig.wire_bytes`` in all.
    The five kernels' counts are zeroed just before and read just after;
    then each is timed at this path's shapes (the paged kernels beside the
-   contiguous kernel on the same lengths);
+   contiguous kernel on the same lengths, and one
+   ``scaled_dot_product_attention`` call on the contiguous cache as the
+   yardstick of the attention kernel's next redesign);
 6. compress_apply: ``repro_torch.launch.compress_apply.run`` at
    mistral-7b's q-projection width (4096 -> 4096, rank 16) on 1000
    random bf16 adapters: clustered JD-Full (QR iteration, 8 clusters) and
@@ -462,7 +464,36 @@ def grouped_kernel_rows(dev, gen):
             ms=checks.cuda_ms(fn), device_ms=checks.device_ms(fn, [kname]),
             plain_ms=checks.cuda_ms(plain, iters=10),
             library_ms=None if lib is None else checks.cuda_ms(lib),
+            library_device_ms=(None if lib is None
+                               else checks.device_ms(lib, [""])),
             bound=checks.bound_ms(nbytes, flops))
+    # the other bank dtype of each tensor-core route: an f32 B (split into
+    # three bf16 pieces) for the expand, a bf16 V for jd_shrink_scale
+    B32, Vb = Bk.float(), V.to(bf16)
+    variants = {
+        ("sgmv_expand", "f32_bank"): (
+            checks.check_sgmv_expand(case, t, B32),
+            lambda: sgmv_expand(t, B32, tid), checks.SGMV_EXPAND_KERNEL,
+            checks.expand_bytes(t, B32, tid), 2 * T * d * r),
+        ("jd_shrink_scale", "bf16_bank"): (
+            checks.check_jd_shrink_scale(case, Vb, sig_tok, tile_cids,
+                                         cluster_of),
+            lambda: jd_shrink_scale(x, Vb, sig_tok, tile_cids),
+            checks.SHRINK_KERNEL,
+            checks.shrink_bytes(case, Vb, tile_cids, r, (sig_tok,)),
+            2 * T * d * r + T * r)}
+    for (name, key), (res, fn, kname, nbytes, flops) in variants.items():
+        b_ms, b_by = checks.bound_ms(nbytes, flops)
+        rows[name][key] = dict(
+            max_abs_err=res["max_abs_err"], ms=checks.cuda_ms(fn),
+            device_ms=checks.device_ms(fn, [kname]), bound_ms=b_ms,
+            bound_by=b_by)
+    # the tensor-core kernels sum in a fixed order: two calls, same bits
+    for fn in (specs["sgmv_shrink"][1], specs["sgmv_expand"][1],
+               specs["jd_shrink_scale"][1],
+               *(v[1] for v in variants.values())):
+        assert torch.equal(fn(), fn()), "a grouped kernel is not repeatable"
+    log("[kernels] grouped kernels repeat bit for bit at full width")
     return rows
 
 
@@ -654,6 +685,22 @@ def phase_paged_kv(dev, rows):
             shape=dict(B=B, kv_len=[int(n) for n in pc["kv_len"]],
                        page_t=pc["page_t"],
                        pool_pages=pc["k_pages"].shape[0]))
+        if name == "flash_decode_paged":
+            # the yardstick of the next redesign (flash-decoding in
+            # decode_attention.cu), never on the path: one
+            # scaled_dot_product_attention call with GQA and a length mask
+            # on the contiguous cache, held to the kernel as row 1's is
+            sdpa = checks.library_attention(case)
+            diff = checks.check_library_attention(case, cont(*ca)[0])
+            rows[name].update(
+                contiguous_library_ms=checks.cuda_ms(sdpa),
+                contiguous_library_device_ms=checks.device_ms(sdpa, [""]),
+                contiguous_library_max_abs_diff=diff)
+            log(f"[paged_kv] sdpa on the contiguous cache (yardstick): "
+                f"{rows[name]['contiguous_library_device_ms']:.4f} device "
+                f"ms against decode_attention's "
+                f"{rows[name]['contiguous_device_ms']:.4f}; max |diff| "
+                f"{diff:.3e}")
 
     x = art["lora"]["wire_block"]
     assert tuple(x.shape) == (128, 65536) and x.dtype == torch.bfloat16
@@ -832,7 +879,11 @@ def main() -> int:
                  "tolerance": r["tolerance"]}
         if "ms_int8" in r:
             entry["ms_int8_banks"] = r["ms_int8"]
-        for key in ("contiguous_ms", "contiguous_device_ms", "serve",
+        for key in ("library_device_ms", "contiguous_ms",
+                    "contiguous_device_ms", "contiguous_library_ms",
+                    "contiguous_library_device_ms",
+                    "contiguous_library_max_abs_diff", "serve",
+                    "f32_bank", "bf16_bank",
                     "ms_int4", "device_ms_int4", "launch_overhead_ms",
                     "shape"):
             if key in r:

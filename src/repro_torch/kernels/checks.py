@@ -50,6 +50,7 @@ it states, and returns the worst error.  The tolerances:
 """
 from __future__ import annotations
 
+import sys
 from typing import Callable, Dict
 
 import torch
@@ -70,9 +71,11 @@ ATTN_KERNEL, EXPAND_KERNEL = "decode_attn_kernel", "fused_expand_kernel"
 QUANT_KERNELS = ("quant_rows_kernel", "quant_cols_kernel")
 DEQUANT_KERNEL = "dequant_kernel"
 KV_QUANT_KERNEL, KV_DEQUANT_KERNEL = "kv_quantize_kernel", "kv_dequantize_kernel"
-# sgmv_shrink and jd_shrink_scale are instances of one template
-SHRINK_KERNEL = "grouped_shrink_kernel"
-SGMV_EXPAND_KERNEL, SIGMA_KERNEL = "sgmv_expand_kernel", "sigma_bmm_kernel"
+# sgmv_shrink and jd_shrink_scale launch grouped_shrink_mma_kernel (bf16
+# x) or grouped_shrink_kernel; sgmv_expand sgmv_expand_mma_kernel (bf16 t)
+# or sgmv_expand_kernel: each prefix names both
+SHRINK_KERNEL = "grouped_shrink"
+SGMV_EXPAND_KERNEL, SIGMA_KERNEL = "sgmv_expand", "sigma_bmm_kernel"
 # tests/test_kernels.py's sweeps: (T, d_in, d_out, n, r, tile)
 SGMV_SWEEP = [(32, 128, 64, 3, 8, 8), (64, 256, 192, 5, 16, 8),
               (128, 512, 256, 2, 32, 16), (16, 64, 128, 7, 4, 8)]
@@ -104,22 +107,40 @@ def cuda_ms(fn: Callable[[], object], iters: int = 50,
 def device_ms(fn: Callable[[], object], kernels, iters: int = 20) -> float:
     """The device's own time per call of ``fn`` in the kernels whose names
     hold one of ``kernels``, from ``torch.profiler``'s device-side events:
-    the kernel bodies without the host's wrapper and launch gaps."""
+    the kernel bodies without the host's wrapper and launch gaps.
+
+    In a long process the tracer drops some kernel records now and then
+    (a few of a profile's launches, or all of them).  Every call of ``fn``
+    launches the same kernels, so each kernel's time per call is its mean
+    time per record times its launches per call (its records over
+    ``iters``, at least one); a profile in which a name has no record is
+    taken again, up to three times, and a name without a record in all
+    three counts as not launched by ``fn``."""
     from torch.autograd import DeviceType
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(ev.self_device_time_total for ev in prof.key_averages()
-             if ev.device_type == DeviceType.CUDA
-             and any(k in ev.key for k in kernels))
-    if us <= 0:
-        raise RuntimeError(f"the profiler saw no device time in {kernels}")
-    return us / 1e3 / iters
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        per_kernel = {ev.key: (ev.count, ev.self_device_time_total)
+                      for ev in prof.key_averages()
+                      if ev.device_type == DeviceType.CUDA
+                      and any(k in ev.key for k in kernels)}
+        if all(any(k in key for key in per_kernel) for k in kernels):
+            break
+    if not per_kernel:
+        raise RuntimeError(f"the profiler saw no launch of {kernels} in "
+                           f"{iters} calls, three times")
+    short = {key: n for key, (n, _) in per_kernel.items() if n % iters}
+    if short:
+        print(f"device_ms: the profiler kept {short} records of {iters} "
+              f"calls; timed per record", file=sys.stderr)
+    us = sum(t / n * max(1, round(n / iters)) for n, t in per_kernel.values())
+    return us / 1e3
 
 
 def _randn(shape, gen, device, dtype, std=1.0):

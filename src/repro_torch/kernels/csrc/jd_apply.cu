@@ -11,8 +11,10 @@
 // scale (sigma_tok null) gives the plain shrink that JD-Full runs before
 // sigma_bmm; multiplying by the TPU's ones instead would not change a bit.
 // V (k, d_in, r) keeps a basis column strided by r, so the block stages a
-// (d_in chunk, r) slab, which is contiguous in V, transposed into shared
-// memory; the rest is the grouped shrink of sgmv.cuh.
+// (d_in chunk, r) slab, which is contiguous in V, and reads it transposed;
+// the rest is the grouped shrink of sgmv.cuh.  With bf16 x it runs on the
+// tensor cores: a bf16 V through ldmatrix.trans, an f32 V split into three
+// bf16 pieces per element (split3), one mma per piece.
 //
 // Bound on an H100: memory, one read of x (T_pad * d_in values) and of the
 // bases the tiles reach, as for sgmv_shrink.

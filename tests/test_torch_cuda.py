@@ -172,6 +172,115 @@ def test_sgmv_matches_plain(cuda, sweep, dtype):
     torch.cuda.synchronize()
 
 
+# bf16 x and t: the tensor-core shrink and expand at their edges
+# (T, d_in, d_out, n, r, tile): tiles of 8 and 16 rows and of 15 (a slab
+# cut short), d_in / d_out not multiples of 8 (rows not 16-byte aligned),
+# ranks that pad N or K, and full width; the expand's bank in bf16 and in
+# f32 (split into three bf16 pieces)
+TC_EDGES = [(64, 70, 33, 3, 4, 8), (48, 70, 33, 3, 12, 16),
+            (64, 136, 72, 4, 16, 16), (40, 64, 33, 3, 33, 8),
+            (32, 70, 40, 2, 64, 16), (45, 37, 19, 2, 16, 16),
+            (256, 256, 256, 4, 33, 128), (1024, 4096, 1024, 8, 64, 128),
+            (4096, 4096, 4096, 32, 16, 128)]
+
+
+def _repeats(fn) -> None:
+    a, b = fn(), fn()
+    assert torch.equal(a, b), "two calls on the same inputs differ"
+
+
+@pytest.mark.parametrize("b_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("sweep", TC_EDGES)
+def test_sgmv_tensor_core_edges(cuda, sweep, b_dtype):
+    T, d_in, d_out, n, r, tile = sweep
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    case = checks.sweep_case(T, d_in, n, tile, bf16, gen, cuda)
+    A = _rand(gen, (n, r, d_in), 1 / 8, bf16)
+    B = _rand(gen, (n, d_out, r), 1 / 4, b_dtype)
+    before = (sg_mod.LAUNCHES_SHRINK, sg_mod.LAUNCHES_EXPAND)
+    t = checks.check_sgmv_shrink(case, A)["out"].to(bf16)
+    checks.check_sgmv_expand(case, t, B)
+    assert (sg_mod.LAUNCHES_SHRINK, sg_mod.LAUNCHES_EXPAND) == \
+        (before[0] + 1, before[1] + 1)
+    tid = case["tile_ids"]
+    _repeats(lambda: sg_mod.sgmv_shrink(case["x"], A, tid, block_t=tile))
+    _repeats(lambda: sg_mod.sgmv_expand(t, B, tid, block_t=tile))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("x_dtype,w_dtype", [
+    (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)])
+def test_sgmv_mixed_dtypes_match_plain(cuda, x_dtype, w_dtype):
+    """An f32 x or A: the CUDA-core shrink; the expand of a bf16 t with an
+    f32 B runs on the tensor cores, of an f32 t on the CUDA cores."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    T, d_in, d_out, n, r, tile = 256, 512, 264, 4, 16, 128
+    case = checks.sweep_case(T, d_in, n, tile, x_dtype, gen, cuda)
+    t = checks.check_sgmv_shrink(case, _rand(gen, (n, r, d_in), 1 / 8,
+                                              w_dtype))["out"].to(x_dtype)
+    checks.check_sgmv_expand(case, t, _rand(gen, (n, d_out, r), 1 / 4,
+                                            w_dtype))
+
+
+def _offset(t: torch.Tensor, elems: int) -> torch.Tensor:
+    """A contiguous copy of ``t`` that starts ``elems`` elements into its
+    buffer (off 16-byte alignment for bf16 and 2 <= elems < 8)."""
+    buf = torch.empty(t.numel() + elems, dtype=t.dtype, device=t.device)
+    view = buf[elems:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def test_grouped_kernels_take_unaligned_views(cuda):
+    """bf16 operands (and an f32 V) whose rows are 16-byte multiples but
+    whose pointers are not: the tensor-core kernels fill their rings by
+    element loads."""
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    T, d_in, d_out, n, r, tile = 64, 128, 64, 3, 16, 16
+    case = checks.sweep_case(T, d_in, n, tile, bf16, gen, cuda)
+    A = _rand(gen, (n, r, d_in), 1 / 8, bf16)
+    ucase = dict(case, x=_offset(case["x"], 4))
+    assert ucase["x"].data_ptr() % 16 and ucase["x"].is_contiguous()
+    t = checks.check_sgmv_shrink(ucase, _offset(A, 2))["out"].to(bf16)
+    # both fills feed the same sums in the same order
+    assert torch.equal(t, checks.check_sgmv_shrink(case, A)["out"].to(bf16))
+    checks.check_sgmv_expand(ucase, _offset(t, 4), _rand(
+        gen, (n, d_out, r), 1 / 4, bf16))
+    V = _rand(gen, (2, d_in, r), 0.05, bf16)
+    cluster_of = (torch.arange(n, device=cuda) % 2).to(torch.int32)
+    tile_cids = cluster_of[case["tile_ids"].long()]
+    checks.check_jd_shrink_scale(ucase, _offset(V, 6), None, tile_cids,
+                                 cluster_of)
+    checks.check_jd_shrink_scale(ucase, _offset(V.float(), 2), None,
+                                 tile_cids, cluster_of)
+
+
+@pytest.mark.parametrize("v_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("scaled", [True, False])
+@pytest.mark.parametrize("r,d_in,tile", [(8, 192, 8), (12, 70, 16),
+                                         (16, 4096, 128), (33, 136, 8),
+                                         (64, 64, 16), (4, 100, 8)])
+def test_jd_shrink_scale_tensor_cores(cuda, scaled, r, d_in, tile, v_dtype):
+    """bf16 x: a bf16 V through ldmatrix.trans, an f32 V in three bf16
+    pieces; aligned and unaligned rows, ranks that pad N."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    n, kcl = 6, 3
+    case = checks.sweep_case(64 if tile < 128 else 1024, d_in, n, tile,
+                             torch.bfloat16, gen, cuda)
+    V = _rand(gen, (kcl, d_in, r), 0.05, v_dtype)
+    cluster_of = (torch.arange(n, device=cuda) % kcl).to(torch.int32)
+    tile_cids = cluster_of[case["tile_ids"].long()]
+    sig = _rand(gen, (n, r), 1.0, torch.float32)
+    sig_tok = sig[case["ids"].long()].to(torch.bfloat16) if scaled else None
+    before = jd_mod.LAUNCHES
+    checks.check_jd_shrink_scale(case, V, sig_tok, tile_cids, cluster_of)
+    assert jd_mod.LAUNCHES == before + 1
+    _repeats(lambda: jd_mod.jd_shrink_scale(case["x"], V, sig_tok,
+                                            tile_cids, block_t=tile))
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("r", [4, 16, 33])
 def test_sigma_bmm_matches_plain(cuda, r, dtype):
