@@ -23,8 +23,9 @@ Phases (any failure ends the script with a non-zero exit code):
    at ``tests/test_kernels.py``'s sweep shapes and at mistral-7b's width
    (4096 tokens: 32 sequences of 128 on their own adapters of 1000, and
    32 decode tokens), each against its plain version, timed beside one
-   ``torch.bmm`` over the tiles where there is one.  The paged kernels run
-   at the serving shapes too, over a pool of 16-token and 128-token pages;
+   ``torch.bmm`` over the tiles where there is one (the yardsticks also by
+   their device time).  The paged kernels run at the serving shapes too,
+   over a pool of 16-token and 128-token pages;
 3. parity: a reduced model (2 layers, d 64, 4 heads over 2 KV heads, so
    the expand kernel sums partials across heads) in f32, with an f32 KV
    cache, decoding through the fused kernels on the card against the
@@ -34,7 +35,8 @@ Phases (any failure ends the script with a non-zero exit code):
    one fused run without an o-projection adapter (plain flash_decode
    attention); every request must finish and every kernel's launch count
    must rise.  The counts are zeroed just before this phase and read just
-   after it;
+   after it, and the port's kernel launches per decode step are printed
+   for each run;
 5. paged_kv: ``repro_torch.launch.paged_kv.run`` at mistral-7b's full
    width and depth: 8 requests of 1024-2044 prompt tokens (8-16 pages of
    128) served on the fused path in lora and jd mode, 4 decode steps;
@@ -48,9 +50,9 @@ Phases (any failure ends the script with a non-zero exit code):
    on the full blocks and at ``KVCompressionConfig.wire_bytes`` in all.
    The five kernels' counts are zeroed just before and read just after;
    then each is timed at this path's shapes (the paged kernels beside the
-   contiguous kernel on the same lengths, and one
-   ``scaled_dot_product_attention`` call on the contiguous cache as the
-   yardstick of the attention kernel's next redesign);
+   contiguous kernel on the same lengths, two calls held bit for bit, and
+   one ``scaled_dot_product_attention`` call on the contiguous cache as the
+   attention kernel's yardstick, with the kernel's share of its bound);
 6. compress_apply: ``repro_torch.launch.compress_apply.run`` at
    mistral-7b's q-projection width (4096 -> 4096, rank 16) on 1000
    random bf16 adapters: clustered JD-Full (QR iteration, 8 clusters) and
@@ -185,6 +187,8 @@ def phase_kernels(dev):
                                    [checks.ATTN_KERNEL]),
         plain_ms=checks.cuda_ms(lambda: ref.flash_decode_ref(q, k, v, kl)),
         library_ms=checks.cuda_ms(checks.library_attention(case)),
+        library_device_ms=checks.device_ms(checks.library_attention(case),
+                                           [""]),
         bound=checks.bound_ms(nbytes, flops))
     log(f"[kernels] flash_decode ok, max_abs_err {res['max_abs_err']:.3e} "
         f"(tol {res['tolerance']}); sdpa agrees within {lib_err:.3e}")
@@ -359,6 +363,8 @@ def grouped_kernel_rows(dev, gen):
                                    [checks.DEQUANT_KERNEL]),
         plain_ms=checks.cuda_ms(lambda: ref.adapter_dequant_ref(q, sc)),
         library_ms=checks.cuda_ms(checks.library_dequant(q, sc)),
+        library_device_ms=checks.device_ms(checks.library_dequant(q, sc),
+                                           [""]),
         bound=checks.bound_ms(checks.dequant_bytes(q, sc, f32), q.numel()))
 
     # tests/test_kernels.py's sweeps
@@ -490,7 +496,7 @@ def grouped_kernel_rows(dev, gen):
             bound_by=b_by)
     # the tensor-core kernels sum in a fixed order: two calls, same bits
     for fn in (specs["sgmv_shrink"][1], specs["sgmv_expand"][1],
-               specs["jd_shrink_scale"][1],
+               specs["sigma_bmm"][1], specs["jd_shrink_scale"][1],
                *(v[1] for v in variants.values())):
         assert torch.equal(fn(), fn()), "a grouped kernel is not repeatable"
     log("[kernels] grouped kernels repeat bit for bit at full width")
@@ -552,10 +558,19 @@ def phase_parity(dev):
             f"max |dlogit| {err:.2e} (tol 2e-5, f32)")
 
 
+def _serve_launches(adapter_quant, flash_decode, fused_decode):
+    return {"flash_decode": flash_decode.LAUNCHES,
+            "fused_decode_lora": fused_decode.LAUNCHES_LORA,
+            "fused_decode_jd": fused_decode.LAUNCHES_JD,
+            "adapter_quantize": adapter_quant.LAUNCHES,
+            "adapter_dequantize": adapter_quant.LAUNCHES_DEQUANT}
+
+
 def phase_serve(dev):
     from repro_torch.configs import get_config
     from repro_torch.kernels import adapter_quant, flash_decode, fused_decode
     from repro_torch.launch.serve import run_real
+    from repro_torch.serving.real_executor import RealModelExecutor
     cfg = get_config("mistral-7b")
     runs = [("jd", "fused", None), ("jd", "fused_q8", None),
             ("lora", "fused", None), ("lora", "fused_q8", None),
@@ -563,15 +578,31 @@ def phase_serve(dev):
     flash_decode.LAUNCHES = 0
     fused_decode.LAUNCHES_LORA = fused_decode.LAUNCHES_JD = 0
     adapter_quant.LAUNCHES = adapter_quant.LAUNCHES_DEQUANT = 0
+    # count the decode steps, for the port's kernel launches per step
+    steps = [0]
+    decode_logits = RealModelExecutor.decode_logits
+
+    def counted(self):
+        steps[0] += 1
+        return decode_logits(self)
     results = []
     for mode, path, targets in runs:
         torch.cuda.reset_peak_memory_stats(dev)
+        before = _serve_launches(adapter_quant, flash_decode, fused_decode)
+        steps[0] = 0
         t0 = time.perf_counter()
-        stats = run_real(cfg, N_ADAPTERS, N_REQUESTS, mode,
-                         max_batch=MAX_BATCH, seed=0, decode_path=path,
-                         device=dev, targets=targets)
+        RealModelExecutor.decode_logits = counted
+        try:
+            stats = run_real(cfg, N_ADAPTERS, N_REQUESTS, mode,
+                             max_batch=MAX_BATCH, seed=0, decode_path=path,
+                             device=dev, targets=targets)
+        finally:
+            RealModelExecutor.decode_logits = decode_logits
         torch.cuda.synchronize(dev)
         wall = time.perf_counter() - t0
+        after = _serve_launches(adapter_quant, flash_decode, fused_decode)
+        per_step = {k: (after[k] - before[k]) / steps[0] for k in after
+                    if after[k] > before[k] and k != "adapter_quantize"}
         assert stats["n_requests"] == N_REQUESTS, stats
         assert stats["n_tokens"] == N_REQUESTS * 8, stats
         row = dict(mode=mode, decode_path=path,
@@ -583,19 +614,22 @@ def phase_serve(dev):
                    tpot_p95_s=stats["tpot_p95_s"],
                    ttft_p50_s=stats["ttft_p50_s"],
                    compute_time_s=stats["compute_time_s"],
-                   run_wall_s=wall,
+                   run_wall_s=wall, decode_steps=steps[0],
+                   kernel_launches_per_step=per_step,
                    max_memory_allocated_gb=torch.cuda.max_memory_allocated(
                        dev) / 1e9)
         results.append(row)
         log("[serve] " + json.dumps(row))
-    launches = {"flash_decode": flash_decode.LAUNCHES,
-                "fused_decode_lora": fused_decode.LAUNCHES_LORA,
-                "fused_decode_jd": fused_decode.LAUNCHES_JD,
-                "adapter_quantize": adapter_quant.LAUNCHES,
-                "adapter_dequantize": adapter_quant.LAUNCHES_DEQUANT}
+    launches = _serve_launches(adapter_quant, flash_decode, fused_decode)
     log("[serve] launches on the main path: " + json.dumps(launches)
         + ' (fused: an attention and an expand launch per layer per step);'
         ' reduced: [] (all 32 layers, full width)')
+    log("[serve] the port's kernel launches per decode step: " + json.dumps(
+        {f"{r['mode']}/{r['decode_path']}"
+         + ("" if r["targets"] == ["q", "k", "v", "o"] else "/qkv"):
+         r["kernel_launches_per_step"] for r in results})
+        + f" (one attention launch per layer: the 128-token bucket is one "
+        f"chunk of {flash_decode.SPLIT_S})")
     for name, n in launches.items():
         assert n > 0, f"{name} was never launched on the main path"
     return launches
@@ -671,6 +705,10 @@ def phase_paged_kv(dev, rows):
             nbytes = checks.fused_bytes(case, banks, mode)
             flops = checks.fused_flops(case, banks, mode)
         res = check(pc, banks)
+        # two calls of the split kernels, same bits
+        for fn in (lambda: paged(*pa, *extra), lambda: cont(*ca, *extra)):
+            for a, b in zip(fn(), fn()):
+                assert torch.equal(a, b), f"{name} is not repeatable"
         rows[name].update(
             max_abs_err=res["max_abs_err"], tolerance=res["tolerance"],
             ms=checks.cuda_ms(lambda: paged(*pa, *extra)),
@@ -685,22 +723,27 @@ def phase_paged_kv(dev, rows):
             shape=dict(B=B, kv_len=[int(n) for n in pc["kv_len"]],
                        page_t=pc["page_t"],
                        pool_pages=pc["k_pages"].shape[0]))
+        r = rows[name]
         if name == "flash_decode_paged":
-            # the yardstick of the next redesign (flash-decoding in
-            # decode_attention.cu), never on the path: one
+            # the yardstick, never on the path: one
             # scaled_dot_product_attention call with GQA and a length mask
             # on the contiguous cache, held to the kernel as row 1's is
             sdpa = checks.library_attention(case)
             diff = checks.check_library_attention(case, cont(*ca)[0])
-            rows[name].update(
+            r.update(
                 contiguous_library_ms=checks.cuda_ms(sdpa),
                 contiguous_library_device_ms=checks.device_ms(sdpa, [""]),
                 contiguous_library_max_abs_diff=diff)
             log(f"[paged_kv] sdpa on the contiguous cache (yardstick): "
-                f"{rows[name]['contiguous_library_device_ms']:.4f} device "
-                f"ms against decode_attention's "
-                f"{rows[name]['contiguous_device_ms']:.4f}; max |diff| "
-                f"{diff:.3e}")
+                f"{r['contiguous_library_device_ms']:.4f} device ms; max "
+                f"|diff| from decode_attention {diff:.3e}")
+        log(f"[paged_kv] {name}: {r['device_ms']:.4f} device ms paged, "
+            f"{r['contiguous_device_ms']:.4f} contiguous (split over "
+            f"{flash_decode.n_chunks(pc['page_table'].shape[1] * pc['page_t'])}"
+            f" chunks, then merged), against sdpa's "
+            f"{rows['flash_decode_paged']['contiguous_library_device_ms']:.4f};"
+            f" bound {r['bound'][0]:.4f} ms = "
+            f"{r['bound'][0] / r['device_ms']:.1%} of the paged time")
 
     x = art["lora"]["wire_block"]
     assert tuple(x.shape) == (128, 65536) and x.dtype == torch.bfloat16
@@ -728,6 +771,8 @@ def phase_paged_kv(dev, rows):
                                    [checks.KV_DEQUANT_KERNEL]),
         plain_ms=checks.cuda_ms(lambda: ref.kv_dequant_ref(q, sc)),
         library_ms=checks.cuda_ms(checks.library_dequant(q, sc)),
+        library_device_ms=checks.device_ms(checks.library_dequant(q, sc),
+                                           [""]),
         bound=checks.bound_ms(checks.kv_dequant_bytes(q, sc, 8,
                                                       torch.float32),
                               q.numel()),

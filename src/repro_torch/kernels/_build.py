@@ -44,10 +44,11 @@ _F = ctypes.c_float
 SIGNATURES = {
     "flash_decode_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                             _I64, _I64, _I64, _I64, _F, _I, _I, _P, _I, _I,
-                            _P],
+                            _P, _P, _I, _P],
     "fused_attn_shrink_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _I,
                                  _P, _P, _I, _I, _I, _I, _I, _I64, _I64,
-                                 _I64, _I64, _F, _I, _I, _P, _I, _I, _P],
+                                 _I64, _I64, _F, _I, _I, _P, _I, _I, _P, _P,
+                                 _I, _P],
     "fused_expand_launch": [_P, _P, _P, _P, _I, _I, _P, _I, _P, _P, _I, _I,
                             _I, _I, _P],
     "adapter_quant_launch": [_P, _I, _P, _P, _I64, _I, _I, _I, _F, _P],

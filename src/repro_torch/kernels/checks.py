@@ -66,8 +66,10 @@ from .sgmv import sgmv_expand, sgmv_shrink, sigma_bmm
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA's data sheet
 F32_FLOPS = 67e12                # H100 SXM f32 outside the tensor cores
-# the __global__ functions of csrc/, as the profiler names them
-ATTN_KERNEL, EXPAND_KERNEL = "decode_attn_kernel", "fused_expand_kernel"
+# the __global__ functions of csrc/, as the profiler names them; the
+# attention prefix names both decode_attn_kernel and, where the cache holds
+# more than one chunk, decode_attn_merge_kernel
+ATTN_KERNEL, EXPAND_KERNEL = "decode_attn", "fused_expand_kernel"
 QUANT_KERNELS = ("quant_rows_kernel", "quant_cols_kernel")
 DEQUANT_KERNEL = "dequant_kernel"
 KV_QUANT_KERNEL, KV_DEQUANT_KERNEL = "kv_quantize_kernel", "kv_dequantize_kernel"

@@ -1,4 +1,5 @@
-// Shared helpers of the port's CUDA kernels: typed loads, warp reductions.
+// Shared helpers of the port's CUDA kernels: typed loads, warp reductions,
+// exact quantization and 16-byte asynchronous copies.
 //
 // Banks and their scales arrive in one of three element types, picked at
 // run time by a small code (uniform across a block, so the switch costs a
@@ -18,6 +19,7 @@ __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f(int8_t x) { return (float)x; }
 
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
@@ -62,4 +64,117 @@ __device__ __forceinline__ float scale_of(float absmax, float qmax) {
 __device__ __forceinline__ int quant(float x, float scale, float qmax) {
   const float qv = rintf(__fdiv_rn(x, scale));
   return (int)fminf(fmaxf(qv, -qmax), qmax);
+}
+
+// -- asynchronous copies (sm_80+ PTX, used on sm_90a) -----------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, bypassing L1; the destination is zero-filled
+// past src_bytes (0 or 16), so a masked copy reads nothing
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)), "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+static __host__ __device__ inline bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// 16 bytes (16-byte aligned) as f32: eight bf16 or four f32 values
+static __device__ __forceinline__ void unpack16(const void* p,
+                                                float (&f)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+static __device__ __forceinline__ void unpack16(const void* p,
+                                                float (&f)[4]) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  f[0] = x.x;
+  f[1] = x.y;
+  f[2] = x.z;
+  f[3] = x.w;
+}
+
+// -- tensor-core building blocks (sm_80+ PTX, used on sm_90a) ---------------
+
+// four 8x8 bf16 matrices from shared memory; lane l gives the address of
+// row l % 8 of matrix l / 8
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+
+// d (16x8 f32) = a (16x16 bf16, row) . b (16x8 bf16, col), from a zero C
+__device__ __forceinline__ void mma_bf16_zero_c(float (&d)[4],
+                                                const uint32_t (&a)[4],
+                                                uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%10, %11, %12, %13};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(0.f), "f"(0.f), "f"(0.f), "f"(0.f));
+}
+
+// d += a (16x16 bf16, row) . b (16x8 bf16, col), f32 accumulation
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// An f32 value as three bf16 pieces, h + m + l: each piece is the rounded
+// remainder of the ones before it (the remainders are exact in f32), and
+// 8 + 8 + 8 bits hold the value's 24, so the pieces sum to it exactly
+// (below ~1e-25 the last piece underflows and drops low bits); each
+// piece's product with a bf16 value is exact in f32.
+__device__ __forceinline__ void split3(float v, __nv_bfloat16 (&p)[3]) {
+  p[0] = __float2bfloat16_rn(v);
+  const float r1 = __fsub_rn(v, __bfloat162float(p[0]));
+  p[1] = __float2bfloat16_rn(r1);
+  p[2] = __float2bfloat16_rn(__fsub_rn(r1, __bfloat162float(p[1])));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(__nv_bfloat16 lo,
+                                                __nv_bfloat16 hi) {
+  return (uint32_t)__bfloat16_as_ushort(lo)
+      | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
 }

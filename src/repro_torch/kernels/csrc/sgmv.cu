@@ -41,7 +41,13 @@
 //   registers and walks the tile's rows, reading each row of t (staged in
 //   shared memory, 32 rows at a time) as float4 broadcasts; consecutive
 //   threads write consecutive channels.
-// sigma_bmm: one block per tile, Sigma[id] (r, r) in shared memory.
+// sigma_bmm (CUDA cores): r is at most 64, so each output is a short sum
+//   and the kernel is latency: one block per (tile, BMM_ROWS rows), 512
+//   blocks at 4096 rows (at the prefill shapes 8 rows a block ran faster
+//   than 16 or 32, and 128 threads than 64; H100 80GB HBM3, 700 W).  A block stages its rows of t (while the tile's
+//   id is in flight) and Sigma[id] as f32 in shared memory, 16 bytes a
+//   load where aligned; consecutive threads then write
+//   consecutive outputs, each an ascending __fmaf_rn sum over j.
 
 #include "sgmv.cuh"
 
@@ -255,25 +261,53 @@ static int expand_mma_route(const void* t, const void* w, const int* tile_ids,
 }
 
 #define BMM_THREADS 128
+#define BMM_ROWS 8           // rows of a tile per block
+
+// `n` values of a bf16 or f32 array as f32 into shared memory, 16 bytes a
+// load where the source is aligned and n is a multiple of a load
+template <typename T>
+static __device__ __forceinline__ void stage_f32(float* dst, const T* src,
+                                                 int n) {
+  constexpr int VE = 16 / sizeof(T);
+  if (aligned16(src) && n % VE == 0) {
+    for (int i = threadIdx.x; i < n / VE; i += BMM_THREADS) {
+      float f[VE];
+      unpack16(src + i * VE, f);
+#pragma unroll
+      for (int e = 0; e < VE; e += 4)
+        *reinterpret_cast<float4*>(dst + i * VE + e) =
+            make_float4(f[e], f[e + 1], f[e + 2], f[e + 3]);
+    }
+  } else {
+    for (int i = threadIdx.x; i < n; i += BMM_THREADS) dst[i] = to_f(src[i]);
+  }
+}
 
 template <typename T>
 __global__ void __launch_bounds__(BMM_THREADS) sigma_bmm_kernel(
     const T* __restrict__ t, const void* __restrict__ sigma, int s_dtype,
     const int* __restrict__ tile_ids, T* __restrict__ out, int bt, int r) {
-  __shared__ float ss[SGMV_RMAX * SGMV_RMAX];
+  __shared__ __align__(16) float ss[SGMV_RMAX * SGMV_RMAX];
+  __shared__ __align__(16) float ts[BMM_ROWS * SGMV_RMAX];
   const int tile = blockIdx.x;
-  const int64_t sbase = (int64_t)tile_ids[tile] * r * r;
-  for (int e = threadIdx.x; e < r * r; e += BMM_THREADS)
-    ss[e] = load_any(sigma, sbase + e, s_dtype);
+  const int row0 = blockIdx.y * BMM_ROWS;
+  const int ne = min(BMM_ROWS, bt - row0) * r;     // this block's outputs
+  const int64_t e0 = ((int64_t)tile * bt + row0) * r;
+  const int id = tile_ids[tile];       // in flight while t's rows load
+  stage_f32(ts, t + e0, ne);
+  const int64_t sbase = (int64_t)id * r * r;
+  if (s_dtype == DT_BF16)
+    stage_f32(ss, static_cast<const __nv_bfloat16*>(sigma) + sbase, r * r);
+  else
+    stage_f32(ss, static_cast<const float*>(sigma) + sbase, r * r);
   __syncthreads();
-  const int64_t row0 = (int64_t)tile * bt;
-  for (int e = threadIdx.x; e < bt * r; e += BMM_THREADS) {
-    const int row = e / r, q = e % r;
-    const T* trow = t + (row0 + row) * r;
+  // consecutive threads, consecutive outputs; each sum in ascending j
+  for (int e = threadIdx.x; e < ne; e += BMM_THREADS) {
+    const int row = e / r, q = e - row * r;
+    const float* trow = ts + row * r;
     float acc = 0.f;
-    for (int j = 0; j < r; ++j)
-      acc = __fmaf_rn(to_f(trow[j]), ss[j * r + q], acc);
-    out[(row0 + row) * r + q] = from_f<T>(acc);
+    for (int j = 0; j < r; ++j) acc = __fmaf_rn(trow[j], ss[j * r + q], acc);
+    out[e0 + e] = from_f<T>(acc);
   }
 }
 
@@ -327,16 +361,18 @@ int sgmv_expand_launch(const void* t, int t_dtype, const void* B,
 int sigma_bmm_launch(const void* t, int t_dtype, const void* sigma,
                      int s_dtype, const int* tile_ids, void* out, int n_tiles,
                      int bt, int r, void* stream) {
-  if (r < 1 || r > SGMV_RMAX || bt < 1 || t_dtype == DT_I8)
+  if (r < 1 || r > SGMV_RMAX || bt < 1 || t_dtype == DT_I8 ||
+      (s_dtype != DT_F32 && s_dtype != DT_BF16))
     return (int)cudaErrorInvalidValue;
   if (n_tiles == 0) return (int)cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
+  const dim3 grid(n_tiles, (bt + BMM_ROWS - 1) / BMM_ROWS);
   if (t_dtype == DT_BF16)
-    sigma_bmm_kernel<__nv_bfloat16><<<n_tiles, BMM_THREADS, 0, st>>>(
+    sigma_bmm_kernel<__nv_bfloat16><<<grid, BMM_THREADS, 0, st>>>(
         static_cast<const __nv_bfloat16*>(t), sigma, s_dtype, tile_ids,
         static_cast<__nv_bfloat16*>(out), bt, r);
   else
-    sigma_bmm_kernel<float><<<n_tiles, BMM_THREADS, 0, st>>>(
+    sigma_bmm_kernel<float><<<grid, BMM_THREADS, 0, st>>>(
         static_cast<const float*>(t), sigma, s_dtype, tile_ids,
         static_cast<float*>(out), bt, r);
   return (int)cudaGetLastError();

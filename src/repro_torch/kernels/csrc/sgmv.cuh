@@ -67,63 +67,6 @@
 #define SHRINK_PAD 4               // keeps rows 16-byte aligned, spreads banks
 #define SGMV_RMAX 64
 
-// -- tensor-core building blocks (sm_80+ PTX, used on sm_90a) ---------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, bypassing L1; the destination is zero-filled
-// past src_bytes (0 or 16), so a masked copy reads nothing
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)), "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// four 8x8 bf16 matrices from shared memory; lane l gives the address of
-// row l % 8 of matrix l / 8
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p))
-      : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p))
-      : "memory");
-}
-
-// d (16x8 f32) = a (16x16 bf16, row) . b (16x8 bf16, col), from a zero C
-__device__ __forceinline__ void mma_bf16_zero_c(float (&d)[4],
-                                                const uint32_t (&a)[4],
-                                                uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%10, %11, %12, %13};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
-        "f"(0.f), "f"(0.f), "f"(0.f), "f"(0.f));
-}
-
 // -- the CUDA-core shrink (any f32 operand) ----------------------------------
 
 // W_COLS false: W is an A bank (n, r, d_in), row c of W[w] contiguous.
@@ -232,24 +175,6 @@ __global__ void __launch_bounds__(SHRINK_THREADS) grouped_shrink_kernel(
 #define TC_WARPS 8
 #define TC_MT 2                    // m16 tiles of a block's slab
 #define TC_ROWS (16 * TC_MT)       // rows of a block's slab
-
-// An f32 value as three bf16 pieces, h + m + l: each piece is the rounded
-// remainder of the ones before it (the remainders are exact in f32), and
-// 8 + 8 + 8 bits hold the value's 24, so the pieces sum to it exactly
-// (below ~1e-25 the last piece underflows and drops low bits); each
-// piece's product with a bf16 x is exact in f32.
-__device__ __forceinline__ void split3(float v, __nv_bfloat16 (&p)[3]) {
-  p[0] = __float2bfloat16_rn(v);
-  const float r1 = __fsub_rn(v, __bfloat162float(p[0]));
-  p[1] = __float2bfloat16_rn(r1);
-  p[2] = __float2bfloat16_rn(__fsub_rn(r1, __bfloat162float(p[1])));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(__nv_bfloat16 lo,
-                                                __nv_bfloat16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo)
-      | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
 
 // One warp's ring of chunks: x (TC_ROWS x KC, bf16) then the weights'
 // (RP x KC for an A bank; KC x RP for a V bank, in WT).  A ring holds as
@@ -497,10 +422,6 @@ int shrink_mma_dispatch(bool vec, const void* x, const void* w,
   if (r <= 32) SHRINK_MMA_CASE(32);
   SHRINK_MMA_CASE(64);
 #undef SHRINK_MMA_CASE
-}
-
-static inline bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 // Launch the tensor-core kernel for bf16 x with a bf16 bank or an f32 V

@@ -4,15 +4,20 @@ Replaces the TPU kernel ``kernels/flash_decode.py::flash_decode`` (body
 ``_decode_kernel``) with the hand-written Hopper kernel of
 ``csrc/decode_attention.cu``.  What bounds it on an H100 is memory: each
 (b, kv-head) streams its valid K/V prefix once, ~2*G flops per byte.  The
-kernel runs one block per (b, kv-head), walks only the ``kv_len[b]`` valid
-positions (the TPU kernel computes masked blocks too), and reads K/V
-through their batch and row strides, so a slice of a larger cache is read
-in place, never copied.
+kernel splits the sequence (flash-decoding): one block per (b, kv-head,
+chunk of :data:`SPLIT_S` positions), K/V staged through a ring of 16-byte
+asynchronous copies, and where the cache holds more than one chunk a
+second launch merges the chunks in ascending order into ``out`` and the
+global ``l, m``.  It walks only the ``kv_len[b]`` valid positions (the TPU
+kernel computes masked blocks too), and reads K/V through their batch and
+row strides, so a slice of a larger cache is read in place, never copied.
 
 :func:`flash_decode_paged` replaces ``flash_decode_paged``: the same
 kernel reads K/V from a pool of pages (P, page_t, Kv, hd) through a page
 table (B, n_blocks), looking the page up per row, and gives results
-bit-identical with :func:`flash_decode` on equal logical content.
+bit-identical with :func:`flash_decode` on equal logical content (chunk
+boundaries depend on the position alone, and empty chunks merge as exact
+zeros).
 
 A CPU tensor goes to the plain version (``ref.flash_decode_ref``,
 ``ref.flash_decode_paged_ref``); a CUDA tensor launches the kernel or
@@ -27,14 +32,80 @@ from . import ref
 
 LAUNCHES = 0             # kernel launches since the last reset
 LAUNCHES_PAGED = 0       # paged launches since the last reset
-MAX_SMEM = 48 * 1024
-TILE_S = 64              # csrc/decode_attention.cu
-ATTN_THREADS = 128
+MAX_SMEM = 227 * 1024    # an H100 block's dynamic shared memory
+# csrc/decode_attention.cu
+SPLIT_S = 256            # positions per chunk
+TILE_S, NSTAGE = 32, 5   # rows per staged tile, tiles in the ring
+GB = 4                   # query rows of the head group per pass
+RED_FLOATS = 4 * 128     # the shrink epilogue's buffer (rank <= 128)
+MAX_HEAD_DIM = 256
 
 
-def attn_smem_bytes(G: int, hd: int, paged: bool = False) -> int:
-    return (4 * (2 * G * hd + G * TILE_S + 3 * G + ATTN_THREADS)
-            + (8 * TILE_S if paged else 0))
+def uses_mma(hd: int, kv_es: int) -> bool:
+    """bf16 K/V rows of a multiple of 32 go through the tensor cores."""
+    return kv_es == 2 and hd % 32 == 0
+
+
+def _row_stride(hd: int, es: int) -> int:
+    """Bytes between two staged K/V rows (``attn_row_stride``)."""
+    rs = -(-hd * es // 16) * 16
+    if uses_mma(hd, es):
+        return rs + (144 - rs % 128) % 128
+    return rs + (192 - rs % 128) % 128 if rs > 64 else rs
+
+
+def attn_smem_bytes(G: int, hd: int, kv_es: int, paged: bool = False) -> int:
+    """Shared memory of one attention block: the K/V ring, the chunk's
+    logits, the pass's query rows (A fragments in three bf16 pieces on the
+    tensor cores), the chunk's p fragments (tensor cores), m and l, the
+    epilogue's buffer, the normalised output (G, hd) and, paged, the
+    chunk's row offsets."""
+    hdp = -(-hd * kv_es // 16) * 16 // kv_es
+    mma = uses_mma(hd, kv_es)
+    q_bytes = 3 * (hd // 16) * 16 * 8 if mma else 4 * GB * hdp
+    p_bytes = (SPLIT_S // 16) * 3 * 16 * 8 if mma else 0
+    return (NSTAGE * TILE_S * _row_stride(hd, kv_es) + q_bytes + p_bytes
+            + 4 * (GB * SPLIT_S + 2 * GB + RED_FLOATS + G * hd)
+            + (8 * SPLIT_S if paged else 0))
+
+
+def merge_smem_bytes(G: int, hd: int, nc: int) -> int:
+    """Shared memory of the merge block: m, l, the epilogue's buffer, the
+    output (G, hd) and the chunks' weights (G, nc)."""
+    return 4 * (2 * G + RED_FLOATS + G * hd + G * nc)
+
+
+def n_chunks(S: int) -> int:
+    """Chunks of :data:`SPLIT_S` positions a launch over ``S`` covers."""
+    return max(1, -(-S // SPLIT_S))
+
+
+def attention_launches(S: int) -> int:
+    """Kernel launches of one attention over ``S`` positions: the chunks'
+    launch, and the merge where there is more than one chunk."""
+    return 1 if n_chunks(S) == 1 else 2
+
+
+def split_workspace(B: int, Kv: int, G: int, hd: int, S: int, device):
+    """(ws_acc (B, Kv, nc, G, hd), ws_ml (B, Kv, nc, G, 2), nc): the f32
+    per-chunk partials of a launch over ``S`` positions; None, None where
+    it has one chunk."""
+    nc = n_chunks(S)
+    if nc == 1:
+        return None, None, 1
+    if merge_smem_bytes(G, hd, nc) > MAX_SMEM:
+        raise ValueError(f"{S} positions in {nc} chunks: too many for one "
+                         f"merge block's shared memory")
+    f32 = torch.float32
+    return (torch.empty((B, Kv, nc, G, hd), dtype=f32, device=device),
+            torch.empty((B, Kv, nc, G, 2), dtype=f32, device=device), nc)
+
+
+def workspace_args(ws) -> tuple:
+    """The kernel's (ws_acc, ws_ml, n_chunks) arguments."""
+    acc, ml, nc = ws
+    return (None if acc is None else acc.data_ptr(),
+            None if ml is None else ml.data_ptr(), nc)
 
 
 def _check_common(q, k, v, kv_len, paged: bool):
@@ -49,9 +120,9 @@ def _check_common(q, k, v, kv_len, paged: bool):
     Kv = k.shape[2]
     if H % Kv:
         raise ValueError(f"{H} heads do not group over {Kv} kv heads")
-    if hd > 256:
-        raise ValueError(f"head_dim {hd} > 256")
-    if attn_smem_bytes(H // Kv, hd, paged) > MAX_SMEM:
+    if hd > MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {hd} > {MAX_HEAD_DIM}")
+    if attn_smem_bytes(H // Kv, hd, k.element_size(), paged) > MAX_SMEM:
         raise ValueError("head group too large for one block's shared memory")
     for t in (q, k, v, kv_len):
         if not t.is_cuda or t.device != q.device:
@@ -130,9 +201,9 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return ref.flash_decode_ref(q, k, v, kv_len)
     dims = check_attention_args(q, k, v, kv_len)[:4]
-    res = _launch(q, k, v, kv_len, dims, contiguous_launch_args(k, v),
-                  "flash_decode")
-    LAUNCHES += 1
+    addr = contiguous_launch_args(k, v)
+    res = _launch(q, k, v, kv_len, dims, addr, "flash_decode")
+    LAUNCHES += attention_launches(addr[0])
     return res
 
 
@@ -149,27 +220,30 @@ def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
                                           kv_len)
     *dims, page_t, n_blocks = check_paged_args(q, k_pages, v_pages,
                                                page_table, kv_len)
-    res = _launch(q, k_pages, v_pages, kv_len, dims,
-                  paged_launch_args(k_pages, v_pages, page_table, page_t,
-                                    n_blocks), "flash_decode_paged")
-    LAUNCHES_PAGED += 1
+    addr = paged_launch_args(k_pages, v_pages, page_table, page_t, n_blocks)
+    res = _launch(q, k_pages, v_pages, kv_len, dims, addr,
+                  "flash_decode_paged")
+    LAUNCHES_PAGED += attention_launches(addr[0])
     return res
 
 
 def _launch(q, k, v, kv_len, dims, addr, name):
-    """One launch of the kernel without an epilogue; ``addr`` from
-    :func:`contiguous_launch_args` or :func:`paged_launch_args`."""
+    """The kernel without an epilogue (and its merge where the cache holds
+    more than one chunk); ``addr`` from :func:`contiguous_launch_args` or
+    :func:`paged_launch_args`."""
     B, H, Kv, hd = dims
     S, k_sb, k_ss, v_sb, v_ss, (pt, n_blocks, page_t) = addr
     G = H // Kv
     out = torch.empty_like(q)
     l = torch.empty((B, Kv, G, 1), dtype=torch.float32, device=q.device)
     m = torch.empty((B, Kv, G, 1), dtype=torch.float32, device=q.device)
+    ws = split_workspace(B, Kv, G, hd, S, q.device)
     err = _build.lib().flash_decode_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
         out.data_ptr(), l.data_ptr(), m.data_ptr(), B, H, Kv, hd, S,
         k_sb, k_ss, v_sb, v_ss, hd ** -0.5,
         _build.dtype_code(q.dtype), _build.dtype_code(k.dtype),
-        pt, n_blocks, page_t, _build.stream_ptr(q.device))
+        pt, n_blocks, page_t, *workspace_args(ws),
+        _build.stream_ptr(q.device))
     _build.check(err, name)
     return out, l, m

@@ -6,11 +6,13 @@ runs the kv-heads in order and a scratch accumulator carries the rank-r
 shrink from one head to the next.  On the H100 blocks run in parallel and
 in no order, so the work is two launches with no atomics:
 
-1. ``csrc/decode_attention.cu`` in a shrink mode: one block per
-   (b, kv-head) runs the same attention as :func:`flash_decode` (so ``out``
-   is bit-identical with it), then contracts that head's f32 normalised
-   output with its slice of ``A[ids[b]]`` (LoRA) or ``V[cluster_of[ids[b]]]``
-   (JD), times the rank scale, into a (B, Kv, r) f32 partial;
+1. ``csrc/decode_attention.cu`` in a shrink mode runs the same attention
+   as :func:`flash_decode` (so ``out`` is bit-identical with it), then
+   contracts each (b, kv-head)'s f32 normalised output with its slice of
+   ``A[ids[b]]`` (LoRA) or ``V[cluster_of[ids[b]]]`` (JD), times the rank
+   scale, into a (B, Kv, r) f32 partial.  Where the cache holds more than
+   one chunk of ``flash_decode.SPLIT_S`` positions this is two launches:
+   the chunks, then their merge, which runs the shrink;
 2. ``csrc/fused_expand.cu``: one block per (b, 256 output channels) sums
    the partials in head order, applies ``Sigma[ids[b]]`` (JD: diag or
    full), expands through ``B[ids[b]]`` or ``U[cid]`` and applies the
@@ -43,12 +45,16 @@ import torch
 
 from . import _build
 from . import ref
-from .flash_decode import (check_attention_args, check_paged_args,
-                           contiguous_launch_args, paged_launch_args)
+from .flash_decode import (attention_launches, check_attention_args,
+                           check_paged_args, contiguous_launch_args,
+                           paged_launch_args, split_workspace,
+                           workspace_args)
 
-LAUNCHES_LORA = 0        # kernel launches (two per call) since the last reset
+# kernel launches since the last reset: two per call (three where the
+# cache holds more than one chunk)
+LAUNCHES_LORA = 0
 LAUNCHES_JD = 0
-LAUNCHES_LORA_PAGED = 0  # the paged variants' launches (two per call)
+LAUNCHES_LORA_PAGED = 0  # the paged variants' launches, counted alike
 LAUNCHES_JD_PAGED = 0
 MAX_RANK = 128
 _ONES: Dict[Tuple, torch.Tensor] = {}
@@ -92,6 +98,7 @@ def _attn_shrink(q, k, v, kv_len, ids, cluster_of, bank, bank_scale, r,
     S, k_sb, k_ss, v_sb, v_ss, (pt, n_blocks, page_t) = addr
     out = torch.empty_like(q)
     partial = torch.empty((B, Kv, r), dtype=torch.float32, device=q.device)
+    ws = split_workspace(B, Kv, H // Kv, hd, S, q.device)
     err = _build.lib().fused_attn_shrink_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
         ids.data_ptr(), None if cluster_of is None else cluster_of.data_ptr(),
@@ -99,7 +106,8 @@ def _attn_shrink(q, k, v, kv_len, ids, cluster_of, bank, bank_scale, r,
         r, out.data_ptr(), partial.data_ptr(), B, H, Kv, hd, S,
         k_sb, k_ss, v_sb, v_ss, hd ** -0.5,
         _build.dtype_code(q.dtype), _build.dtype_code(k.dtype),
-        pt, n_blocks, page_t, _build.stream_ptr(q.device))
+        pt, n_blocks, page_t, *workspace_args(ws),
+        _build.stream_ptr(q.device))
     _build.check(err, "fused_attn_shrink")
     return out, partial
 
@@ -189,9 +197,9 @@ def fused_decode_lora(q, k, v, kv_len, ids, A, B,
         return ref.fused_decode_lora_ref(q, k, v, kv_len, ids, A, B,
                                          a_scale, b_scale)
     dims = check_attention_args(q, k, v, kv_len)[:4]
-    res = _lora(q, k, v, kv_len, ids, A, B, a_scale, b_scale, dims,
-                contiguous_launch_args(k, v))
-    LAUNCHES_LORA += 2
+    addr = contiguous_launch_args(k, v)
+    res = _lora(q, k, v, kv_len, ids, A, B, a_scale, b_scale, dims, addr)
+    LAUNCHES_LORA += attention_launches(addr[0]) + 1
     return res
 
 
@@ -208,10 +216,10 @@ def fused_decode_lora_paged(q, k_pages, v_pages, page_table, kv_len, ids, A,
             b_scale)
     *dims, page_t, n_blocks = check_paged_args(q, k_pages, v_pages,
                                                page_table, kv_len)
+    addr = paged_launch_args(k_pages, v_pages, page_table, page_t, n_blocks)
     res = _lora(q, k_pages, v_pages, kv_len, ids, A, B, a_scale, b_scale,
-                dims, paged_launch_args(k_pages, v_pages, page_table, page_t,
-                                        n_blocks))
-    LAUNCHES_LORA_PAGED += 2
+                dims, addr)
+    LAUNCHES_LORA_PAGED += attention_launches(addr[0]) + 1
     return res
 
 
@@ -229,9 +237,10 @@ def fused_decode_jd(q, k, v, kv_len, ids, U, V, sigma, cluster_of,
         return ref.fused_decode_jd_ref(q, k, v, kv_len, ids, U, V, sigma,
                                        cluster_of, u_scale, v_scale)
     dims = check_attention_args(q, k, v, kv_len)[:4]
+    addr = contiguous_launch_args(k, v)
     res = _jd(q, k, v, kv_len, ids, U, V, sigma, cluster_of, u_scale,
-              v_scale, dims, contiguous_launch_args(k, v))
-    LAUNCHES_JD += 2
+              v_scale, dims, addr)
+    LAUNCHES_JD += attention_launches(addr[0]) + 1
     return res
 
 
@@ -248,9 +257,8 @@ def fused_decode_jd_paged(q, k_pages, v_pages, page_table, kv_len, ids, U, V,
             cluster_of, u_scale, v_scale)
     *dims, page_t, n_blocks = check_paged_args(q, k_pages, v_pages,
                                                page_table, kv_len)
+    addr = paged_launch_args(k_pages, v_pages, page_table, page_t, n_blocks)
     res = _jd(q, k_pages, v_pages, kv_len, ids, U, V, sigma, cluster_of,
-              u_scale, v_scale, dims,
-              paged_launch_args(k_pages, v_pages, page_table, page_t,
-                                n_blocks))
-    LAUNCHES_JD_PAGED += 2
+              u_scale, v_scale, dims, addr)
+    LAUNCHES_JD_PAGED += attention_launches(addr[0]) + 1
     return res

@@ -49,6 +49,46 @@ def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype), l, m
 
 
+def flash_decode_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           kv_len: Optional[torch.Tensor] = None,
+                           split_s: int = 256
+                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Decode attention as ``csrc/decode_attention.cu`` splits it: per
+    chunk of ``split_s`` positions ``[c * split_s, (c + 1) * split_s)`` the
+    unnormalised ``acc = p @ V`` with ``p = exp(s - m_c)``, ``l_c = sum p``
+    and ``m_c`` (an empty chunk: acc 0, l 0, m -1e30), then the merge in
+    ascending chunk order: ``m = max_c m_c``, ``w_c = exp(m_c - m)``,
+    ``l = sum_c w_c l_c``, ``out = sum_c w_c acc_c / max(l, 1e-30)``.
+    Returns (out (B, H, hd) in q's dtype, l, m (B, Kv, G, 1) f32), the
+    global stats, as :func:`flash_decode_ref`."""
+    B, H, hd = q.shape
+    S, Kv = k.shape[1], k.shape[2]
+    G = H // Kv
+    qf = q.reshape(B, Kv, G, hd).float() * (hd ** -0.5)
+    lens = (torch.full((B,), S, device=q.device) if kv_len is None
+            else kv_len.long().to(q.device).clamp(max=S))
+    parts = []
+    for c0 in range(0, max(S, 1), split_s):
+        ks, vs = k[:, c0:c0 + split_s].float(), v[:, c0:c0 + split_s].float()
+        pos = torch.arange(c0, c0 + ks.shape[1], device=q.device)
+        valid = (pos[None, :] < lens[:, None])[:, None, None, :]
+        s = torch.where(valid, torch.einsum("bkgh,bskh->bkgs", qf, ks),
+                        torch.tensor(NEG_INF, device=q.device))
+        m = s.amax(dim=-1)
+        p = torch.where(valid, torch.exp(s - m[..., None]),
+                        torch.zeros((), device=q.device))
+        parts.append((torch.einsum("bkgs,bskh->bkgh", p, vs), p.sum(-1), m))
+    m = torch.stack([mc for _, _, mc in parts]).amax(dim=0)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(parts[0][0])
+    for acc_c, l_c, m_c in parts:
+        w = torch.exp(m_c - m)
+        l = l + w * l_c
+        acc = acc + w[..., None] * acc_c
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return (out.reshape(B, H, hd).to(q.dtype), l[..., None], m[..., None])
+
+
 def _attend_for_delta(q, k, v, kv_len, f32_delta: bool):
     """(out in q's dtype, the flattened f32 output the delta contracts):
     the rounded ``out`` as ``kernels/ref.py`` takes it, or with

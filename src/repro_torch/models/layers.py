@@ -4,8 +4,9 @@ and logits.
 
 Plain functions on tensors; parameters are nested dicts of tensors in the
 JAX package's layouts (``wq (d, H, hd)``, ``wo (H, hd, d)``, ...).  The
-sequence-sharded and lazy decode branches and the mesh constraints of the
-JAX module are not ported yet.
+lazy decode branch and the mesh constraints of the JAX module are not
+ported yet; its sequence-sharded branch needs a mesh, and on one device it
+is the gather path (:func:`attention_fwd`).
 """
 from __future__ import annotations
 
@@ -210,6 +211,15 @@ def attention_fwd(p: Dict, x: torch.Tensor, cfg, *,
     token at ``index`` and attends over ``[0, index + S)``.  Neither
     mutates ``cache``."""
     B, S, _ = x.shape
+    if cfg.decode_attn not in ("gather", "seq_shard", "lazy"):
+        raise ValueError(f"decode_attn {cfg.decode_attn!r}: the configs know "
+                         f"'gather' and 'seq_shard'")
+    if cfg.decode_attn == "lazy" and mode == "decode" and S == 1:
+        raise NotImplementedError(
+            "decode_attn 'lazy' (a two-part softmax that returns only the new "
+            "token's K/V) is not ported: ROADMAP queue 1, item 7")
+    # "seq_shard" runs the gather path: the JAX package takes its seq-shard
+    # branch only with a mesh and tp > 1, and the port runs on one device
     hd = cfg.resolved_head_dim
     q, k, v = _qkv(p, x, cfg, lora_ctx)
     cos, sin = rope_tables(positions, hd, cfg.rope_theta)

@@ -26,6 +26,9 @@ SHAPES = [  # B, H, Kv, hd, s_max, bucket, kv_len
     (8, 32, 8, 128, 160, 128, [1, 7, 63, 64, 65, 100, 127, 128]),
     (3, 4, 1, 64, 300, 256, [200, 256, 5]),
     (2, 2, 1, 32, 64, 64, [64, 1]),
+    # long context: eight chunks of 256 positions, split at and around a
+    # chunk's edges, empty chunks past the shorter rows
+    (8, 32, 8, 128, 2048, 2048, [1, 255, 256, 257, 1044, 1500, 1896, 2048]),
 ]
 
 
@@ -52,7 +55,8 @@ def test_flash_decode_matches_plain(cuda, shape, dtype):
     case, _ = _case(cuda, shape, dtype)
     before = fd_mod.LAUNCHES
     checks.check_flash_decode(case)
-    assert fd_mod.LAUNCHES == before + 1
+    assert fd_mod.LAUNCHES == before + fd_mod.attention_launches(
+        case["k"].shape[1])
     torch.cuda.synchronize()
 
 
@@ -78,6 +82,44 @@ def test_fused_jd_matches_plain(cuda, quant, diag, kcl):
     before = fu_mod.LAUNCHES_JD
     checks.check_fused_jd(case, banks)
     assert fu_mod.LAUNCHES_JD == before + 2
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [SHAPES[1], SHAPES[-1]])
+def test_attention_entry_points_repeat_bit_for_bit(cuda, shape, kv_dtype):
+    """Two calls of every attention entry point on the same inputs give
+    the same bits (one chunk, and eight chunks merged), and the fused
+    kernels' out equals flash_decode's."""
+    from repro_torch.kernels.flash_decode import flash_decode_paged
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    B, H, Kv, hd, s_max, bucket, kv_len = shape
+    case = checks.attention_case(B, H, Kv, hd, s_max, bucket, kv_len,
+                                 torch.bfloat16, gen, cuda,
+                                 kv_dtype=kv_dtype)
+    case["ids"] = torch.randint(0, 5, (B,), generator=gen, device=cuda,
+                                dtype=torch.int32)
+    pc = checks.paged_case(case, 128, 5, gen)
+    lb = checks.lora_banks(5, 16, H * hd, 256, torch.bfloat16, gen, cuda,
+                           False)
+    jb = checks.jd_banks(2, 5, 16, H * hd, 256, torch.bfloat16, gen, cuda,
+                         False, diag=False)
+    q, k, v, kl, ids = (case[x] for x in ("q", "k", "v", "kv_len", "ids"))
+    pa = (q, pc["k_pages"], pc["v_pages"], pc["page_table"], kl)
+    la = (ids, lb["A"], lb["B"])
+    ja = (ids, jb["U"], jb["V"], jb["sigma"], jb["cluster_of"])
+    calls = [lambda: flash_decode(q, k, v, kl),
+             lambda: flash_decode_paged(*pa),
+             lambda: fu_mod.fused_decode_lora(q, k, v, kl, *la),
+             lambda: fu_mod.fused_decode_lora_paged(*pa, *la),
+             lambda: fu_mod.fused_decode_jd(q, k, v, kl, *ja),
+             lambda: fu_mod.fused_decode_jd_paged(*pa, *ja)]
+    for fn in calls:
+        for a, b in zip(fn(), fn()):
+            assert torch.equal(a, b), "two calls on the same inputs differ"
+    out = calls[0]()[0]
+    for fn in calls[2:4]:
+        assert torch.equal(fn()[0], out)
+    torch.cuda.synchronize()
 
 
 def test_f32_queries_over_a_bf16_cache(cuda):
@@ -130,6 +172,14 @@ def test_wrappers_refuse_what_the_kernel_does_not_take(cuda):
         flash_decode(q.half(), k.half(), v.half(), kl)
     with pytest.raises(ValueError):
         flash_decode(q, k, v, kl.cpu())
+    with pytest.raises(ValueError):                     # head_dim above 256
+        flash_decode(torch.zeros((2, 2, 264), device=cuda),
+                     torch.zeros((2, 8, 1, 264), device=cuda),
+                     torch.zeros((2, 8, 1, 264), device=cuda), kl[:2])
+    with pytest.raises(ValueError):     # a head group past shared memory
+        flash_decode(torch.zeros((1, 128, 256), device=cuda),
+                     torch.zeros((1, 8, 1, 256), device=cuda),
+                     torch.zeros((1, 8, 1, 256), device=cuda), kl[:1])
 
 
 # -- adapter_dequantize and the grouped kernels ------------------------------
@@ -292,6 +342,23 @@ def test_sigma_bmm_matches_plain(cuda, r, dtype):
     assert sg_mod.LAUNCHES_SIGMA == before + 1
 
 
+@pytest.mark.parametrize("t_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("s_dtype", [torch.bfloat16, torch.float32])
+def test_sigma_bmm_at_the_prefill_shape(cuda, t_dtype, s_dtype):
+    """4096 rows in 32 tiles of 128 at rank 16 (compress_apply's prefill
+    batch), aligned and from an unaligned view; two calls, same bits."""
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    case = checks.sweep_case(4096, 16, 32, 128, t_dtype, gen, cuda)
+    sig = _rand(gen, (32, 16, 16), 0.25, s_dtype)
+    before = sg_mod.LAUNCHES_SIGMA
+    got = checks.check_sigma_bmm(case, case["x"], sig)["out"]
+    assert sg_mod.LAUNCHES_SIGMA == before + 1
+    _repeats(lambda: sg_mod.sigma_bmm(case["x"], sig, case["tile_ids"]))
+    ux, us = _offset(case["x"], 2), _offset(sig, 1)
+    assert ux.data_ptr() % 16 and us.data_ptr() % 16
+    assert torch.equal(checks.check_sigma_bmm(case, ux, us)["out"], got)
+
+
 @pytest.mark.parametrize("scaled", [True, False])
 @pytest.mark.parametrize("kcl,d_in,tile", [(1, 192, 8), (3, 192, 8),
                                            (8, 4096, 128)])
@@ -403,9 +470,10 @@ def test_paged_equals_contiguous_bitwise(cuda, shape, page_t, kv_dtype,
     jb = checks.jd_banks(2, 5, 16, H * hd, 256, torch.bfloat16, gen, cuda,
                          quant, diag=False)
     checks.check_fused_jd_paged(pc, jb)
+    n = fd_mod.attention_launches(pc["page_table"].shape[1] * page_t)
     assert (fd_mod.LAUNCHES_PAGED, fu_mod.LAUNCHES_LORA_PAGED,
-            fu_mod.LAUNCHES_JD_PAGED) == (before[0] + 1, before[1] + 2,
-                                          before[2] + 2)
+            fu_mod.LAUNCHES_JD_PAGED) == (before[0] + n, before[1] + n + 1,
+                                          before[2] + n + 1)
     # the first launch's partials, paged against contiguous
     from repro_torch.kernels.flash_decode import (contiguous_launch_args,
                                                   paged_launch_args)
