@@ -17,8 +17,11 @@ Phases (any failure ends the script with a non-zero exit code):
    adapter_quantize equals its plain version exactly; time kernel, plain
    version and, for attention, ``scaled_dot_product_attention`` as a
    yardstick, with CUDA events, and the kernels' own device time per call
-   with ``torch.profiler``.  Then ``adapter_dequantize`` (exact, on the
-   fused_q8 path's per-layer banks) and the grouped kernels
+   with ``torch.profiler``; ``adapter_quantize`` is timed on the three
+   packed layouts (A, B and V banks).  Then
+   ``adapter_dequantize`` (exact, one bank at a time and grouped, on the
+   fused_q8 path's per-layer banks; a lora and a jd layer's banks timed
+   in one grouped launch beside one launch a bank) and the grouped kernels
    (``sgmv_shrink``, ``sgmv_expand``, ``sigma_bmm``, ``jd_shrink_scale``)
    at ``tests/test_kernels.py``'s sweep shapes and at mistral-7b's width
    (4096 tokens: 32 sequences of 128 on their own adapters of 1000, and
@@ -36,7 +39,8 @@ Phases (any failure ends the script with a non-zero exit code):
    attention); every request must finish and every kernel's launch count
    must rise.  The counts are zeroed just before this phase and read just
    after it, and the port's kernel launches per decode step are printed
-   for each run;
+   for each run (fused_q8: one ``adapter_dequantize_group`` launch a
+   layer, plus the prefills' share);
 5. paged_kv: ``repro_torch.launch.paged_kv.run`` at mistral-7b's full
    width and depth: 8 requests of 1024-2044 prompt tokens (8-16 pages of
    128) served on the fused path in lora and jd mode, 4 decode steps;
@@ -80,6 +84,7 @@ import torch  # noqa: E402
 
 N_ADAPTERS, N_REQUESTS, MAX_BATCH = 16, 24, 8
 B, H, KV, HD, R, D_OUT = 8, 32, 8, 128, 16, 4096
+LAYERS = 32    # mistral-7b's depth: the adapter banks are stacked over it
 S_MAX, BUCKET, KV_LEN = 160, 128, 32
 
 KERNELS = {
@@ -247,20 +252,20 @@ def phase_kernels(dev):
 
     rows.update(paged_serve_rows(dev, gen, case, bfp, jfp))
 
-    # adapter banks as run_real packs them at mistral-7b width (32 layers)
-    L = 32
-    a_bank = (torch.randn((L, N_ADAPTERS, R, H * HD), generator=gen,
+    # adapter banks as run_real packs them at mistral-7b width and depth
+    a_bank = (torch.randn(QUANT_BANKS["A_bank"][0], generator=gen,
                           device=dev) * 0.02).to(bf16)
     for w, axis in ((a_bank, -1),
-                    ((torch.randn((L, N_ADAPTERS, D_OUT, R), generator=gen,
+                    ((torch.randn(QUANT_BANKS["B_bank"][0], generator=gen,
                                   device=dev) * 0.02).to(bf16), -1),
-                    ((torch.randn((L, 1, H * HD, R), generator=gen,
+                    ((torch.randn(QUANT_BANKS["V_bank"][0], generator=gen,
                                   device=dev) * 0.02).to(bf16), -2),
                     (torch.randn((4, 64, 48), generator=gen, device=dev), -2)):
         checks.check_adapter_quantize(w, axis)
         log(f"[kernels] adapter_quantize {tuple(w.shape)} {w.dtype} "
             f"axis={axis} ok, exact")
     rows["adapter_quantize"] = dict(
+        quantize_readings(dev, gen, ("B_bank", "V_bank")),
         max_abs_err=0.0, tolerance="exact",
         ms=checks.cuda_ms(lambda: adapter_quantize(a_bank), iters=10),
         device_ms=checks.device_ms(lambda: adapter_quantize(a_bank),
@@ -329,11 +334,108 @@ def paged_serve_rows(dev, gen, case, lora_banks, jd_banks):
     return rows
 
 
+# the packed layouts of the fused_q8 path's banks: (shape, axis)
+QUANT_BANKS = {"A_bank": ((LAYERS, N_ADAPTERS, R, H * HD), -1),
+               "B_bank": ((LAYERS, N_ADAPTERS, D_OUT, R), -1),
+               "V_bank": ((LAYERS, 1, H * HD, R), -2)}
+
+
+def _timed(checks, fn, kernels, nbytes, flops, iters=50):
+    """CUDA-event ms, the kernels' own device ms and the bound of fn."""
+    b_ms, b_by = checks.bound_ms(nbytes, flops)
+    dev = checks.device_ms(fn, kernels, iters=min(iters, 20))
+    return dict(ms=checks.cuda_ms(fn, iters=iters), device_ms=dev,
+                bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / dev)
+
+
+def quantize_readings(dev, gen, names) -> dict:
+    """adapter_quantize of the packed layouts ``names`` in bf16, each
+    checked exact, then timed."""
+    from repro_torch.kernels import checks
+    from repro_torch.kernels.adapter_quant import adapter_quantize
+    out = {}
+    for name in names:
+        shape, axis = QUANT_BANKS[name]
+        w = (torch.randn(shape, generator=gen, device=dev) * 0.02).to(
+            torch.bfloat16)
+        checks.check_adapter_quantize(w, axis)
+        out[name] = dict(shape=list(shape), axis=axis, **_timed(
+            checks, lambda: adapter_quantize(w, axis=axis),
+            list(checks.QUANT_KERNELS), checks.quant_bytes(w, axis),
+            3 * w.numel(), iters=10))
+    return out
+
+
+def _layer_banks(dev, gen, mode: str):
+    """Every decode layer's packed q/k/v banks (plus a jd o-target's full
+    Sigma), as the fused_q8 path packs them: a list over the layers of
+    each layer's ``(q, scale)`` slices of the stacked banks."""
+    from repro_torch.kernels.adapter_quant import adapter_quantize
+    d, d_kv = H * HD, KV * HD
+
+    def packed(shape, axis=-1):
+        w = (torch.randn((LAYERS,) + shape, generator=gen, device=dev)
+             * 0.02).to(torch.bfloat16)
+        return adapter_quantize(w, axis=axis)
+    if mode == "lora":
+        stacked = [b for do in (d, d_kv, d_kv)
+                   for b in (packed((N_ADAPTERS, R, d)),
+                             packed((N_ADAPTERS, do, R)))]
+    else:
+        stacked = [b for do in (d, d_kv, d_kv)
+                   for b in (packed((1, do, R)), packed((1, d, R), -2),
+                             packed((N_ADAPTERS, R, R)))]
+        stacked.append(packed((N_ADAPTERS, R, R)))
+    return [[(q[li], s[li]) for q, s in stacked] for li in range(LAYERS)]
+
+
+def layer_readings(dev, gen) -> dict:
+    """A lora and a jd decode layer's banks to f32, in one grouped launch
+    and one launch a bank, each checked exact.  Each timed call walks all
+    the layers in turn, as a decode step does, so a layer's banks are read
+    cold (the layers' banks exceed the 50 MB L2); times are per layer."""
+    from repro_torch.kernels import checks, ref
+    from repro_torch.kernels.adapter_quant import (adapter_dequantize,
+                                                   adapter_dequantize_group)
+    f32 = torch.float32
+    out = {}
+    for mode in ("lora", "jd"):
+        layers = _layer_banks(dev, gen, mode)
+        pairs = layers[0]
+        nbytes = sum(checks.dequant_bytes(q, s, f32) for q, s in pairs)
+        values = sum(q.numel() for q, _ in pairs)
+
+        def per_layer(fn):
+            r = _timed(checks, fn, [checks.DEQUANT_KERNEL],
+                       LAYERS * nbytes, LAYERS * values, iters=10)
+            r.update(ms=r["ms"] / LAYERS, device_ms=r["device_ms"] / LAYERS,
+                     bound_ms=r["bound_ms"] / LAYERS)
+            return r
+
+        def each():
+            for p in layers:
+                for q, s in p:
+                    adapter_dequantize(q, s)
+
+        def grouped():
+            for p in layers:
+                adapter_dequantize_group(p)
+        for (q, s), got in zip(pairs, adapter_dequantize_group(pairs)):
+            want = ref.adapter_dequant_ref(q, s)
+            assert torch.equal(got, want)
+            assert torch.equal(adapter_dequantize(q, s), want)
+        out[f"{mode}_layer"] = dict(
+            banks=len(pairs), values=values, bytes=nbytes,
+            grouped=per_layer(grouped), one_bank_launches=per_layer(each))
+        del layers, pairs
+    return out
+
+
 def grouped_kernel_rows(dev, gen):
     """adapter_dequantize and the grouped kernels: checks at the sweep
     shapes and at full width, and the timed rows at the main paths'
     shapes."""
-    from repro_torch.kernels import checks, ref
+    from repro_torch.kernels import adapter_quant, checks, ref
     from repro_torch.kernels.adapter_quant import (adapter_dequantize,
                                                    adapter_quantize)
     from repro_torch.kernels.jd_apply import jd_shrink_scale
@@ -353,8 +455,16 @@ def grouped_kernel_rows(dev, gen):
     for q, sc in deq:
         for od in (f32, bf16):
             checks.check_adapter_dequantize(q, sc, od)
-    log(f"[kernels] adapter_dequantize exact on {len(deq)} banks, f32 and "
-        f"bf16 out")
+    # the same banks and per-layer slices of stacked ones in one launch
+    qa, sa = adapter_quantize(randn((2, N_ADAPTERS, R, H * HD), 0.02, bf16))
+    qv, sv = adapter_quantize(randn((2, 1, H * HD, R), 0.02, bf16), axis=-2)
+    group = deq + [(qa[1], sa[1]), (qv[1], sv[1])]
+    for od in (f32, bf16):
+        before = adapter_quant.LAUNCHES_DEQUANT
+        checks.check_adapter_dequantize_group(group, od)
+        assert adapter_quant.LAUNCHES_DEQUANT == before + 1
+    log(f"[kernels] adapter_dequantize exact on {len(deq)} banks one at a "
+        f"time and on {len(group)} in one grouped launch, f32 and bf16 out")
     q, sc = deq[0]
     rows["adapter_dequantize"] = dict(
         max_abs_err=0.0, tolerance="exact",
@@ -365,7 +475,15 @@ def grouped_kernel_rows(dev, gen):
         library_ms=checks.cuda_ms(checks.library_dequant(q, sc)),
         library_device_ms=checks.device_ms(checks.library_dequant(q, sc),
                                            [""]),
-        bound=checks.bound_ms(checks.dequant_bytes(q, sc, f32), q.numel()))
+        bound=checks.bound_ms(checks.dequant_bytes(q, sc, f32), q.numel()),
+        # a decode layer's banks, one grouped launch beside one a bank
+        layer_group=layer_readings(dev, gen))
+    for mode in ("lora", "jd"):
+        lg = rows["adapter_dequantize"]["layer_group"][f"{mode}_layer"]
+        log(f"[kernels] adapter_dequantize, a {mode} layer's {lg['banks']} "
+            f"banks: {lg['grouped']['device_ms']:.5f} device ms in one "
+            f"launch ({lg['grouped']['bound_share']:.0%} of its bound), "
+            f"{lg['one_bank_launches']['device_ms']:.5f} in one a bank")
 
     # tests/test_kernels.py's sweeps
     worst = {k: 0.0 for k in ("sgmv_shrink", "sgmv_expand", "sigma_bmm",
@@ -928,7 +1046,8 @@ def main() -> int:
                     "contiguous_device_ms", "contiguous_library_ms",
                     "contiguous_library_device_ms",
                     "contiguous_library_max_abs_diff", "serve",
-                    "f32_bank", "bf16_bank",
+                    "f32_bank", "bf16_bank", "layer_group", "B_bank",
+                    "V_bank",
                     "ms_int4", "device_ms_int4", "launch_overhead_ms",
                     "shape"):
             if key in r:

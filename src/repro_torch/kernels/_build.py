@@ -52,7 +52,7 @@ SIGNATURES = {
     "fused_expand_launch": [_P, _P, _P, _P, _I, _I, _P, _I, _P, _P, _I, _I,
                             _I, _I, _P],
     "adapter_quant_launch": [_P, _I, _P, _P, _I64, _I, _I, _I, _F, _P],
-    "adapter_dequant_launch": [_P, _P, _P, _I, _I64, _I, _I, _I, _P],
+    "adapter_dequant_group_launch": [_P, _I, _I, _P],
     "sgmv_shrink_launch": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _P],
     "sgmv_expand_launch": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _P],
     "sigma_bmm_launch": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _P],

@@ -56,7 +56,8 @@ from typing import Callable, Dict
 import torch
 
 from . import ref
-from .adapter_quant import adapter_dequantize, adapter_quantize
+from .adapter_quant import (adapter_dequantize, adapter_dequantize_group,
+                            adapter_quantize)
 from .flash_decode import flash_decode, flash_decode_paged
 from .fused_decode import (fused_decode_jd, fused_decode_jd_paged,
                            fused_decode_lora, fused_decode_lora_paged)
@@ -70,8 +71,12 @@ F32_FLOPS = 67e12                # H100 SXM f32 outside the tensor cores
 # attention prefix names both decode_attn_kernel and, where the cache holds
 # more than one chunk, decode_attn_merge_kernel
 ATTN_KERNEL, EXPAND_KERNEL = "decode_attn", "fused_expand_kernel"
-QUANT_KERNELS = ("quant_rows_kernel", "quant_cols_kernel")
-DEQUANT_KERNEL = "dequant_kernel"
+# adapter_quantize launches one of adapter_quant_{rows_vec,rows_group,
+# cols_cluster,rows,cols}_kernel: the prefix names them all;
+# adapter_dequantize and adapter_dequantize_group launch
+# adapter_dequant_group_kernel
+QUANT_KERNELS = ("adapter_quant_",)
+DEQUANT_KERNEL = "adapter_dequant_group_kernel"
 KV_QUANT_KERNEL, KV_DEQUANT_KERNEL = "kv_quantize_kernel", "kv_dequantize_kernel"
 # sgmv_shrink and jd_shrink_scale launch grouped_shrink_mma_kernel (bf16
 # x) or grouped_shrink_kernel; sgmv_expand sgmv_expand_mma_kernel (bf16 t)
@@ -586,6 +591,21 @@ def check_adapter_dequantize(q: torch.Tensor, scale: torch.Tensor,
         raise AssertionError(f"adapter_dequantize differs from its plain "
                              f"version in {bad} elements")
     return {"max_abs_err": 0.0, "tolerance": "exact"}
+
+
+def check_adapter_dequantize_group(pairs, out_dtype) -> Dict:
+    """The grouped launch against the plain version, bank by bank."""
+    got = adapter_dequantize_group(pairs, out_dtype=out_dtype)
+    if len(got) != len(pairs):
+        raise AssertionError(f"adapter_dequantize_group returned {len(got)} "
+                             f"outputs for {len(pairs)} banks")
+    for i, ((q, scale), g) in enumerate(zip(pairs, got)):
+        want = ref.adapter_dequant_ref(q, scale, out_dtype)
+        if g.shape != want.shape or not torch.equal(g, want):
+            raise AssertionError(f"adapter_dequantize_group differs from its "
+                                 f"plain version on bank {i} "
+                                 f"{tuple(q.shape)}")
+    return {"max_abs_err": 0.0, "tolerance": "exact", "out": got}
 
 
 def dequant_bytes(q: torch.Tensor, scale: torch.Tensor, out_dtype) -> int:

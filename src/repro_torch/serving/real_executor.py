@@ -21,8 +21,10 @@ Decode paths (``decode_path``, surfaced as `EngineConfig.decode_path`):
 * ``"fused_q8"`` — ``"fused"`` plus int8 per-output-channel adapter
   residency (`kernels/adapter_quant.py`): banks are packed at
   construction, `adapter_bytes` shrinks ~4x, the o-target bank is
-  dequantized inside the fused kernels and q/k/v banks (and a full
-  o-target Sigma) per layer by the ``adapter_dequantize`` kernel.
+  dequantized inside the fused kernels, and a layer's q/k/v banks (with a
+  full o-target Sigma) at the top of the layer in one
+  ``adapter_dequantize_group`` launch, so only one layer's banks are f32
+  at a time.
 """
 from __future__ import annotations
 
@@ -34,7 +36,7 @@ import torch
 
 from ..device import resolve_device
 from ..kernels import ops as kops
-from ..kernels.adapter_quant import adapter_dequantize, adapter_quantize
+from ..kernels.adapter_quant import adapter_dequantize_group, adapter_quantize
 from ..models import layers
 from ..models import transformer as tf
 from ..models.lora import LoRAContext
@@ -108,7 +110,7 @@ class RealModelExecutor:
     def _prefill(self, tokens, cache, ids):
         bundles = self.bundles
         if self.decode_path == "fused_q8":
-            bundles = _dequantize_bundles(bundles)
+            bundles = {"layers": _dequantize_targets(bundles["layers"])}
         return tf.prefill(self.params, {"tokens": tokens}, self.cfg, cache,
                           lora_params=bundles,
                           lora_ctx_proto=self._ctx(ids))
@@ -145,11 +147,21 @@ class RealModelExecutor:
         w = min(idx, ck.shape[2] - S)            # XLA's clamped write index
         kv_len = torch.full((Bt,), idx + S, dtype=torch.int32,
                             device=self.device)
+        o_sigma_q = quant and o_bank is not None and "sigma_q" in o_bank
         for li in range(cfg.num_layers):
             p_l = tf.layer_params(self.params["layers"], li)
-            lora_l = {t: (_dequantize_target(tf.layer_params(tp, li))
-                          if quant else tf.layer_params(tp, li))
-                      for t, tp in qkv_banks.items()} or None
+            lora_l = {t: tf.layer_params(tp, li)
+                      for t, tp in qkv_banks.items()}
+            o_sigma = None
+            if quant:
+                # one launch for the layer's int8 banks: q/k/v and a full
+                # o-target Sigma
+                if o_sigma_q:
+                    lora_l["o"] = {"sigma_q": o_bank["sigma_q"][li],
+                                   "sigma_s": o_bank["sigma_s"][li]}
+                lora_l = _dequantize_targets(lora_l)
+                o_sigma = lora_l.pop("o", {}).get("sigma")
+            lora_l = lora_l or None
             ctx = (LoRAContext(mode=proto.mode, params=lora_l, ids=proto.ids,
                                scaling=proto.scaling)
                    if lora_l is not None else None)
@@ -161,7 +173,7 @@ class RealModelExecutor:
             cv[li, :, w:w + S] = vh.to(cv.dtype)
             attn, delta = self._fused_attn(qh[:, 0], ck[li, :, :bucket],
                                            cv[li, :, :bucket], kv_len,
-                                           ids, o_bank, li)
+                                           ids, o_bank, li, o_sigma)
             y = torch.einsum("bhk,hkd->bd", attn, p_l["attn"]["wo"])
             if delta is not None:
                 y = y + (proto.scaling * delta).to(y.dtype)
@@ -171,9 +183,11 @@ class RealModelExecutor:
         self.cache["index"] = idx + S
         return layers.logits_fwd(self.params["embed"], x, cfg)
 
-    def _fused_attn(self, q1, k_l, v_l, kv_len, ids, o_bank, li):
+    def _fused_attn(self, q1, k_l, v_l, kv_len, ids, o_bank, li,
+                    o_sigma=None):
         """One layer's decode attention (+ fused o-delta when the bundles
-        carry an "o" target)."""
+        carry an "o" target); ``o_sigma`` is the layer's dequantized full
+        Sigma of a packed jd o-target."""
         if o_bank is None:
             return kops.decode_attention(q1, k_l, v_l, kv_len), None
         if self.mode == "lora":
@@ -185,9 +199,7 @@ class RealModelExecutor:
             return kops.fused_lora_decode(q1, k_l, v_l, kv_len, ids,
                                           o_bank["A"][li], o_bank["B"][li])
         if self.decode_path == "fused_q8":
-            sigma = (o_bank["sigma"][li] if "sigma" in o_bank else
-                     adapter_dequantize(o_bank["sigma_q"][li],
-                                        o_bank["sigma_s"][li]))
+            sigma = o_bank["sigma"][li] if "sigma" in o_bank else o_sigma
             return kops.fused_jd_decode(
                 q1, k_l, v_l, kv_len, ids, o_bank["U_q"][li],
                 o_bank["V_q"][li], sigma, o_bank["cluster_of"][li],
@@ -324,25 +336,22 @@ def _quantize_bundles(bundles: Dict, mode: str) -> Dict:
                        for t, tp in bundles["layers"].items()}}
 
 
-def _dequantize_target(tp: Dict) -> Dict:
-    """f32 view of one (possibly packed) target bank, through the
-    ``adapter_dequantize`` kernel on the card."""
-    if "A_q" in tp:
-        return {"A": adapter_dequantize(tp["A_q"], tp["A_s"]),
-                "B": adapter_dequantize(tp["B_q"], tp["B_s"])}
-    if "U_q" in tp:
-        out = {"U": adapter_dequantize(tp["U_q"], tp["U_s"]),
-               "V": adapter_dequantize(tp["V_q"], tp["V_s"]),
-               "cluster_of": tp["cluster_of"]}
-        out["sigma"] = (tp["sigma"] if "sigma" in tp else
-                        adapter_dequantize(tp["sigma_q"], tp["sigma_s"]))
-        return out
-    return tp
+_PACKED = ("A", "B", "U", "V", "sigma")
 
 
-def _dequantize_bundles(bundles: Dict) -> Dict:
-    return {"layers": {t: _dequantize_target(tp)
-                       for t, tp in bundles["layers"].items()}}
+def _dequantize_targets(targets: Dict[str, Dict]) -> Dict[str, Dict]:
+    """f32 views of target banks: every packed (int8) bank of them, through
+    one ``adapter_dequantize_group`` call (one launch on the card for up to
+    16 banks); fp banks and ``cluster_of`` pass through."""
+    jobs = [(t, k) for t, tp in targets.items() for k in _PACKED
+            if k + "_q" in tp]
+    outs = adapter_dequantize_group(
+        [(targets[t][k + "_q"], targets[t][k + "_s"]) for t, k in jobs])
+    res = {t: {k: v for k, v in tp.items() if not k.endswith(("_q", "_s"))}
+           for t, tp in targets.items()}
+    for (t, k), out in zip(jobs, outs):
+        res[t][k] = out
+    return res
 
 
 def derive_cost_constants(samples) -> Dict[str, float]:

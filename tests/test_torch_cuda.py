@@ -143,21 +143,52 @@ def test_fused_with_f32_banks_and_f32_attention(cuda):
 
 
 @pytest.mark.parametrize("shape,axis,dtype", [
-    ((2, 16, 16, 4096), -1, torch.bfloat16),
-    ((2, 16, 4096, 16), -1, torch.bfloat16),
-    ((2, 1, 4096, 16), -2, torch.bfloat16),
-    ((3, 7, 100), -1, torch.float32),
-    ((3, 100, 70), -2, torch.float32),
+    ((2, 16, 16, 4096), -1, torch.bfloat16),   # long rows: 4 warps a row
+    ((2, 16, 4096, 16), -1, torch.bfloat16),   # 16-wide rows: 2 lanes a row
+    ((2, 1, 4096, 16), -2, torch.bfloat16),    # columns: a cluster of 4
+    ((3, 7, 100), -1, torch.float32),          # 25 chunks a row: 4 warps
+    ((3, 100, 70), -2, torch.float32),         # 280-byte rows: element loads
+    ((2, 16, 16, 4096), -1, torch.float32),    # 4 warps, chunks re-read
+    ((2, 16, 4096, 16), -1, torch.float32),    # 4 lanes a row
+    ((2, 1, 4096, 16), -2, torch.float32),     # a cluster of 4, 4 chunks a row
+    ((1, 12000, 16), -2, torch.bfloat16),      # past 4 blocks: element loads
+    ((1, 40000, 16), -2, torch.bfloat16),      # past 4 blocks: element loads
+    ((3, 9, 7), -1, torch.bfloat16),           # 14-byte rows: element loads
+    ((4, 64, 48), -2, torch.float32),          # 12 chunks a row: tiles
+    ((5, 8, 64), -1, torch.bfloat16),          # 8 lanes a row
 ])
 def test_adapter_quantize_equals_plain(cuda, shape, axis, dtype):
     gen = torch.Generator(device=cuda).manual_seed(1)
     w = torch.randn(shape, generator=gen, device=cuda).to(dtype)
-    w.view(-1)[:6] = torch.tensor([0.5, 1.5, 2.5, -2.5, 0.0, 3.5],
-                                  device=cuda, dtype=dtype)
+    # channel 0 has absmax 127, so scale 1 and exact half-step ties (round
+    # half to even); channel 1 absmax 254, scale 2, ties again
+    ties = torch.tensor([0.5, 1.5, 2.5, -2.5, 0.0, 3.5, 127.0], device=cuda,
+                        dtype=dtype)
+    m = w.view(-1, *shape[-2:])
     if axis == -1:
+        m[0, 0, :7] = ties
+        m[0, 1, :5] = 2 * ties[[0, 1, 2, 3, 6]]
         w[..., -1, :] = 0
     else:
+        m[0, :7, 0] = ties
+        m[0, :5, 1] = 2 * ties[[0, 1, 2, 3, 6]]
         w[..., -1] = 0
+    checks.check_adapter_quantize(w, axis)
+    q, s = aq_mod.adapter_quantize(w, axis=axis)
+    assert float(s.view(-1)[0]) == 1.0
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("axis", [-1, -2])
+def test_adapter_quantize_unaligned_bank(cuda, axis):
+    """A bank 2 bytes past a 16-byte boundary takes the element-load
+    kernels, exactly as well."""
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    shape = (2, 64, 16) if axis == -2 else (2, 16, 64)
+    buf = torch.randn(2 * 64 * 16 + 1, generator=gen,
+                      device=cuda).to(torch.bfloat16)
+    w = buf[1:].view(shape)
+    assert w.is_contiguous() and w.data_ptr() % 16 == 2
     checks.check_adapter_quantize(w, axis)
 
 
@@ -197,6 +228,65 @@ def test_adapter_dequantize_equals_plain(cuda, shape, axis, out_dtype):
     before = aq_mod.LAUNCHES_DEQUANT
     checks.check_adapter_dequantize(q, s, out_dtype)
     assert aq_mod.LAUNCHES_DEQUANT == before + 1
+
+
+def _group_banks(cuda, seed=4):
+    """Packed banks of every layout the dequantize kernel takes: rows with
+    C % 16 == 0 (an A bank, 16-wide B/U and Sigma), cols with C == 16 (a V
+    basis), odd widths, per-layer slices of stacked banks, banks whose
+    values are not 16-byte aligned, and an empty bank."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+
+    def packed(shape, axis):
+        w = torch.randn(shape, generator=gen, device=cuda) * 0.05
+        return aq_mod.adapter_quantize(w, axis=axis)
+
+    def unaligned(q, s):
+        buf = torch.empty(q.numel() + 1, dtype=torch.int8, device=cuda)
+        buf[1:].copy_(q.view(-1))
+        return buf[1:].view(q.shape), s
+
+    pairs = [packed((16, 16, 4096), -1), packed((16, 4096, 16), -1),
+             packed((1, 4096, 16), -2), packed((16, 16, 16), -1),
+             packed((3, 50, 70), -2), packed((2, 3, 7, 100), -2),
+             packed((4, 64, 16), -1)]
+    qa, sa = packed((3, 4, 16, 64), -1)
+    qv, sv = packed((3, 1, 64, 16), -2)
+    pairs += [(qa[1], sa[1]), (qv[2], sv[2]),
+              unaligned(*packed((2, 16, 64), -1)),
+              unaligned(*packed((2, 64, 16), -2)),
+              (torch.empty((0, 16, 16), dtype=torch.int8, device=cuda),
+               torch.empty((0, 16, 1), device=cuda))]
+    return pairs
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_adapter_dequantize_group_equals_plain(cuda, out_dtype):
+    pairs = _group_banks(cuda)
+    assert len(pairs) <= aq_mod.GROUP_CAP
+    before = aq_mod.LAUNCHES_DEQUANT
+    checks.check_adapter_dequantize_group(pairs, out_dtype)
+    assert aq_mod.LAUNCHES_DEQUANT == before + 1
+    for q, s in pairs:                   # the one-bank case, same kernel
+        checks.check_adapter_dequantize(q, s, out_dtype)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("n_banks", [1, 16, 17, 40])
+def test_adapter_dequantize_group_launches(cuda, n_banks):
+    """One launch per GROUP_CAP banks; empty banks take none."""
+    full = [p for p in _group_banks(cuda) if p[0].numel()]
+    pairs = [full[i % len(full)] for i in range(n_banks)]
+    empty = (torch.empty((2, 0, 16), dtype=torch.int8, device=cuda),
+             torch.empty((2, 0, 1), device=cuda))
+    before = aq_mod.LAUNCHES_DEQUANT
+    checks.check_adapter_dequantize_group(pairs + [empty], torch.float32)
+    assert aq_mod.LAUNCHES_DEQUANT == before + -(-n_banks
+                                                // aq_mod.GROUP_CAP)
+    before = aq_mod.LAUNCHES_DEQUANT
+    assert aq_mod.adapter_dequantize_group([empty])[0].shape == (2, 0, 16)
+    assert aq_mod.LAUNCHES_DEQUANT == before
+    torch.cuda.synchronize()
 
 
 def _rand(gen, shape, std, dtype):
@@ -433,6 +523,17 @@ def test_grouped_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(TypeError):                      # not int8
         aq_mod.adapter_dequantize(torch.zeros((2, 4, 6), device=cuda),
                                   torch.ones((2, 4, 1), device=cuda))
+    q8 = torch.zeros((2, 4, 6), dtype=torch.int8, device=cuda)
+    s8 = torch.ones((2, 4, 1), device=cuda)
+    with pytest.raises(ValueError):                     # a scale on the CPU
+        aq_mod.adapter_dequantize_group([(q8, s8), (q8, s8.cpu())])
+    with pytest.raises(ValueError):                     # a CPU bank first
+        aq_mod.adapter_dequantize_group([(q8.cpu(), s8.cpu()), (q8, s8)])
+    with pytest.raises(ValueError):                     # not contiguous
+        aq_mod.adapter_dequantize_group(
+            [(q8.transpose(1, 2), torch.ones((2, 6, 1), device=cuda))])
+    with pytest.raises(TypeError):                      # fp16 out
+        aq_mod.adapter_dequantize_group([(q8, s8)], out_dtype=torch.half)
 
 
 # -- paged KV decode and KV wire quantization ---------------------------------
