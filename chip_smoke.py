@@ -64,7 +64,23 @@ Phases (any failure ends the script with a non-zero exit code):
    4096-token prefill batch and a 32-token decode batch; every output is
    held against its plain chain on the card, and the compressed deltas'
    distance from the uncompressed ones against the reconstruction error.
-   The grouped kernels' counts are zeroed just before and read just after.
+   The grouped kernels' counts are zeroed just before and read just after;
+7. lifecycle: ``repro_torch.launch.grounded_churn.run`` at mistral-7b's
+   q-projection width (4096 -> 4096, LoRA rank 16, bf16 weights, f32
+   solves): 128 adapters around 7 family centres compressed by
+   ``cluster_jd`` to the paper's setting for 128 (rank 16, 7 clusters),
+   served by the cost-model fleet of ``benchmarks/adapter_churn.py``'s
+   churn cell (3 replicas, cluster affinity, Zipf 1.0 at 90 requests/s,
+   300 requests, 1.0 registrations/s, refresh every 2 s).  Hot-registered
+   adapters are placed by ``assign_adapter`` on the card and serve raw
+   through ``ops.lora_apply``'s kernels against the plain chain; each
+   rollout's re-solved candidate passes ``refresh_gate`` and a kernel
+   check through ``ops.jd_apply``'s kernels (full Sigma) on every
+   replica; the first rollout's candidate is planted bad and must roll
+   back; retirements drop their Sigma rows with ``drop_adapter``.  Every
+   request must finish, the lifecycle's counters must match the events
+   and the gates, and the four grouped kernels' counts, zeroed just
+   before, must rise.
 
 The last lines are the kernel names, the card's name and power limit, one
 JSON object with each kernel's numbers, and the ok line.
@@ -140,6 +156,9 @@ KERNELS = {
 # compress_apply: mistral-7b's q projection, 1000 adapters, 32 sequences
 # of 128 prefill tokens (and one decode token each), 8 clusters, tile 128
 CA_ADAPTERS, CA_SEQS, CA_SEQ_LEN, CA_CLUSTERS, TILE = 1000, 32, 128, 8, 128
+# lifecycle: the churn cell's 128-adapter collection (paper setting: JD
+# rank 16, 7 clusters) at the q projection's width
+LC_ADAPTERS = 128
 
 
 def log(msg: str) -> None:
@@ -1010,6 +1029,58 @@ def phase_compress_apply(dev):
     return launches
 
 
+def phase_lifecycle(dev):
+    """Online registration, update and retirement through the lifecycle's
+    hooks on the card (``launch/grounded_churn.py``), at mistral-7b's
+    q-projection width, under the churn cell's traffic."""
+    from repro_torch.kernels import jd_apply, sgmv
+    from repro_torch.launch import grounded_churn
+    sgmv.LAUNCHES_SHRINK = sgmv.LAUNCHES_EXPAND = sgmv.LAUNCHES_SIGMA = 0
+    jd_apply.LAUNCHES = 0
+    t0 = time.perf_counter()
+    rep = grounded_churn.run(width=D_OUT, rank=R, n_base=LC_ADAPTERS,
+                             device=dev)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    launches = {"sgmv_shrink": sgmv.LAUNCHES_SHRINK,
+                "sgmv_expand": sgmv.LAUNCHES_EXPAND,
+                "sigma_bmm": sgmv.LAUNCHES_SIGMA,
+                "jd_shrink_scale": jd_apply.LAUNCHES}
+    grounded_churn.check(rep)
+    for name, n in launches.items():
+        assert n > 0, f"{name} was never launched on the lifecycle path"
+    assert (rep["jd_rank"], rep["clusters"]) == (16, 7), rep
+    log(f"[lifecycle] launches on the path: {json.dumps(launches)}")
+    log(f"[lifecycle] {rep['finished']} of {rep['n_requests']} requests "
+        f"finished; events {json.dumps(rep['events'])}; lifecycle "
+        f"{json.dumps(rep['lifecycle'])}")
+    log(f"[lifecycle] bank: {rep['n_base']} adapters, {rep['width']} -> "
+        f"{rep['width']}, LoRA rank {rep['rank']}, JD rank {rep['jd_rank']}, "
+        f"{rep['clusters']} clusters, solved in {rep['base_solve_s']:.3f} s, "
+        f"mean rel err {rep['base_mean_rel_err']:.4f}, gate floor "
+        f"{rep['max_new_rel_err']:.4f}")
+    for r in rep["registrations"]:
+        log("[lifecycle] assign " + json.dumps(r))
+    for r in rep["rollouts"]:
+        log("[lifecycle] rollout " + json.dumps(r))
+    for g in rep["gates"]:
+        log("[lifecycle] gate " + json.dumps(g))
+    ms = [r["assign_ms"] for r in rep["registrations"]]
+    solves = sorted({g["solve_s"] for g in rep["gates"]
+                     if g["solve_s"] is not None})
+    log(f"[lifecycle] assign_adapter ms per adapter (CUDA events): "
+        f"{json.dumps(ms)}; re-solve s per rollout: {json.dumps(solves)}; "
+        f"gate s: {json.dumps([g['gate_s'] for g in rep['gates']])}; "
+        f"agreement max_abs_err: "
+        f"{json.dumps([g['max_abs_err'] for g in rep['gates']])}; raw "
+        f"overlay max_abs_err: "
+        f"{json.dumps([r['raw_max_abs_err'] for r in rep['registrations']])}")
+    log(f"[lifecycle] phase {wall:.2f} s (fleet simulated over "
+        f"{rep['n_requests']} requests, rps {rep['rps']:.3f} by the H100 "
+        f"cost model)")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1025,7 +1096,11 @@ def main() -> int:
     phase_parity(dev)
     launches = phase_serve(dev)
     launches.update(phase_paged_kv(dev, rows))
-    launches.update(phase_compress_apply(dev))
+    by_path = {"compress_apply": phase_compress_apply(dev)}
+    launches.update(by_path["compress_apply"])
+    by_path["lifecycle"] = phase_lifecycle(dev)
+    for name, n in by_path["lifecycle"].items():
+        launches[name] += n
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
@@ -1042,6 +1117,9 @@ def main() -> int:
                  "tolerance": r["tolerance"]}
         if "ms_int8" in r:
             entry["ms_int8_banks"] = r["ms_int8"]
+        if name in by_path["lifecycle"]:
+            entry["launches_by_path"] = {
+                path: counts[name] for path, counts in by_path.items()}
         for key in ("library_device_ms", "contiguous_ms",
                     "contiguous_device_ms", "contiguous_library_ms",
                     "contiguous_library_device_ms",

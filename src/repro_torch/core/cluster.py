@@ -12,7 +12,10 @@ per cluster, reused by every outer iteration) can be passed in through
 ``starts``; otherwise they are drawn from ``generator``.
 
 The online lifecycle functions (``assign_adapter``, ``add_adapter``,
-``drop_adapter``, ``refresh_gate``) are not ported yet.
+``drop_adapter``, ``refresh_gate``) place, append, drop and gate single
+adapters on the tensors' device without a re-solve; the control plane of
+``serving/lifecycle.py`` plugs them in through its hooks
+(``launch/grounded_churn.py``).
 """
 from __future__ import annotations
 
@@ -173,6 +176,89 @@ def clustered_reconstruction_errors(A, B, c: ClusteredJD) -> dict:
     return dict(err_sq=err_sq, norms_sq=norms_sq, rel_err=rel,
                 mean_rel_err=rel.mean(),
                 loss=err_sq.sum() / torch.clamp(norms_sq.sum(), min=1e-30))
+
+
+# ---------------------------------------------------------------------------
+# online lifecycle: incremental assignment, lazy shrink, refresh gate
+# ---------------------------------------------------------------------------
+
+
+def assign_adapter(A_i, B_i, c: ClusteredJD):
+    """Incrementally place ONE new adapter on its nearest existing basis.
+
+    The online-registration half of the assignment step: score every
+    cluster with :func:`_assignment_scores` on a singleton bank (retained
+    energy under the orthogonal bases — argmax retained == argmin
+    reconstruction error) and compute the adapter's Sigma against the
+    winner.  Nothing is re-solved, so this is cheap enough to run at
+    register time; the basis only *serves* the adapter after the next
+    refresh ships it fleet-wide (see ``serving/lifecycle.py``).
+
+    A_i: (r_lora, d_in), B_i: (d_out, r_lora).  Returns
+    ``(cluster, sigma, rel_err)`` — the nearest cluster index, the (r, r)
+    Sigma against that cluster's basis, and the adapter's relative
+    reconstruction error under it."""
+    A, B = A_i[None], B_i[None]
+    scores = _assignment_scores(A, B, c.U, c.V)[0]            # (k,)
+    j = int(scores.argmax())
+    sigma = (c.U[j].T @ B_i) @ (A_i @ c.V[j])
+    norm_sq = product_frob_norms(A, B)[0] ** 2
+    err_sq = torch.clamp(norm_sq - scores[j], min=0.0)
+    rel = float(torch.sqrt(err_sq / torch.clamp(norm_sq, min=1e-30)))
+    return j, sigma, rel
+
+
+def add_adapter(c: ClusteredJD, A_i, B_i):
+    """Hot-register: append one adapter to the collection without a
+    re-solve (its Sigma rides the nearest existing basis; the next basis
+    refresh re-solves with it as a full member).  Returns
+    ``(new ClusteredJD, cluster, rel_err)``."""
+    j, sigma, rel = assign_adapter(A_i, B_i, c)
+    new = dataclasses.replace(
+        c, sigma=torch.cat([c.sigma, sigma[None].to(c.sigma.dtype)]),
+        assign=torch.cat([c.assign, torch.tensor(
+            [j], dtype=c.assign.dtype, device=c.assign.device)]))
+    return new, j, rel
+
+
+def drop_adapter(c: ClusteredJD, i: int) -> ClusteredJD:
+    """Retire: drop adapter `i`'s Sigma row and assignment.  The shared
+    bases are left untouched — lazy shrink: they still reconstruct every
+    remaining adapter exactly as before, and the next refresh re-solves
+    over the smaller membership."""
+    keep = torch.arange(c.sigma.shape[0], device=c.sigma.device) != i
+    return dataclasses.replace(c, sigma=c.sigma[keep], assign=c.assign[keep])
+
+
+def refresh_gate(A, B, serving: ClusteredJD, candidate: ClusteredJD,
+                 max_regression: float = 0.0, abs_slack: float = 1e-6,
+                 max_new_rel_err: float = 1.0) -> dict:
+    """Quality gate for a basis-refresh rollout (invariant L3).
+
+    `A`/`B` is the bank the *candidate* covers; its first
+    ``serving.sigma.shape[0]`` adapters (same order) are the ones the
+    serving basis covers, any tail rows are newly absorbed raw adapters.
+    The candidate passes only if
+
+    - the adapters already served compressed do not regress: candidate
+      mean relative reconstruction error <= serving mean * (1 +
+      `max_regression`) + `abs_slack`, and
+    - every newly absorbed adapter lands under `max_new_rel_err` (it was
+      being served RAW, i.e. exactly).
+
+    Returns ``dict(ok, serving_err, candidate_err, new_worst_rel_err)``
+    — plain floats, consumable by the torch-free control plane."""
+    n_old = serving.sigma.shape[0]
+    old_m = clustered_reconstruction_errors(A[:n_old], B[:n_old], serving)
+    cand = clustered_reconstruction_errors(A, B, candidate)
+    old_err = float(old_m["mean_rel_err"])
+    new_err = float(cand["rel_err"][:n_old].mean())
+    new_worst = (float(cand["rel_err"][n_old:].max())
+                 if A.shape[0] > n_old else 0.0)
+    ok = (new_err <= old_err * (1.0 + max_regression) + abs_slack
+          and new_worst <= max_new_rel_err)
+    return dict(ok=bool(ok), serving_err=old_err, candidate_err=new_err,
+                new_worst_rel_err=new_worst)
 
 
 def parameter_counts(d_out: int, d_in: int, n: int, rank: int,

@@ -761,7 +761,20 @@ def jd_chain_plain(x, U, V, sigma, cluster_of, ids):
 CHAIN_TOL = "2**-7*|ref| + 2**-6*M + 1e-5, M = |u| @ |W|^T of the expand"
 
 
+def _chain_tol(want, M):
+    return 2.0 ** -7 * want.float().abs() + 2.0 ** -6 * M + 1e-5
+
+
 def check_chain(name, got, plain) -> float:
     want, M = plain
-    tol = 2.0 ** -7 * want.float().abs() + 2.0 ** -6 * M + 1e-5
-    return _assert_close(name, got, want, tol)
+    return _assert_close(name, got, want, _chain_tol(want, M))
+
+
+def chain_agreement(got, plain) -> Dict:
+    """The share of ``got``'s elements within :data:`CHAIN_TOL` of the
+    plain chain (1.0 = all), and the largest absolute difference: the
+    kernel-vs-plain agreement a basis-refresh gate reads."""
+    want, M = plain
+    err = (got.float() - want.float()).abs()
+    return {"agreement": float((err <= _chain_tol(want, M)).float().mean()),
+            "max_abs_err": float(err.max())}

@@ -47,18 +47,18 @@ SEED = 0
 
 
 def make_bank(n: int, rank: int, d_in: int, d_out: int, seed: int,
-              device) -> LoRABank:
-    """n random bf16 adapters, adapter i around centre i % FAMILIES."""
+              device, families: int = FAMILIES) -> LoRABank:
+    """n random bf16 adapters, adapter i around centre i % families."""
     g = torch.Generator(device=device)
     g.manual_seed(seed)
 
     def normal(shape):
         return torch.randn(shape, generator=g, device=device)
 
-    fam = torch.arange(n, device=device) % FAMILIES
-    A = normal((FAMILIES, rank, d_in))[fam] + FAMILY_NOISE * normal(
+    fam = torch.arange(n, device=device) % families
+    A = normal((families, rank, d_in))[fam] + FAMILY_NOISE * normal(
         (n, rank, d_in))
-    B = normal((FAMILIES, d_out, rank))[fam] + FAMILY_NOISE * normal(
+    B = normal((families, d_out, rank))[fam] + FAMILY_NOISE * normal(
         (n, d_out, rank))
     return LoRABank(A=(INIT_STD * A).to(torch.bfloat16),
                     B=(INIT_STD * B).to(torch.bfloat16),

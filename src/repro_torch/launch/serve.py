@@ -1,6 +1,11 @@
-"""Serving launcher (the port of the real-model half of
-``launch/serve.py``): multi-LoRA continuous batching over the real model,
-on the card by default.
+"""Serving launcher (the port of ``launch/serve.py``): multi-LoRA
+continuous batching over the real model, on the card by default, and the
+paper's throughput study on the cost model.
+
+  # Figs. 1/4: jd vs lora vs single LoRA across collection sizes, priced by
+  # the H100 cost model (simulated clock; touches no tensor, runs anywhere)
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mistral-7b \\
+      --study 1,128,1024 --requests 300
 
   # mistral-7b at full width, fused kernels, on the card
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mistral-7b \\
@@ -22,6 +27,7 @@ from ..configs import get_config, smoke_config
 from ..device import resolve_device
 from ..serving.engine import EngineConfig, ServingEngine
 from ..serving.scheduler import SchedulerConfig
+from ..serving.simulator import run_throughput_study
 from ..serving.workload import WorkloadSpec, make_workload
 
 # per-target offsets of the bundle generator's seed: fixed, where the JAX
@@ -126,6 +132,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--study", default=None,
+                    help="comma list of adapter counts for the Fig-1 study")
     ap.add_argument("--requests", type=int, default=500)
     ap.add_argument("--real", action="store_true",
                     help="accepted for the JAX launcher's command lines; "
@@ -139,6 +147,13 @@ def main():
     args = ap.parse_args()
 
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if args.study:
+        ns = [int(x) for x in args.study.split(",")]
+        rows = run_throughput_study(cfg, ns,
+                                    WorkloadSpec(n_requests=args.requests))
+        for r in rows:
+            print(json.dumps(r, indent=None, default=str))
+        return
     out = run_real(cfg, args.adapters, args.requests, args.mode,
                    decode_path=args.decode_path, device=args.device)
     print(json.dumps(out, indent=2))

@@ -21,9 +21,16 @@ def _imported_roots(path: pathlib.Path):
             yield (node.module or "").split(".")[0]
 
 
+# the control plane, the throughput study and the grounded lifecycle
+CONTROL_PLANE = [f"src/repro_torch/serving/{m}.py" for m in (
+    "router", "prefill", "autoscaler", "lifecycle", "migration",
+    "simulator", "resources")] + ["src/repro_torch/launch/grounded_churn.py"]
+
+
 def test_port_has_files():
     assert len(PORT_FILES) > 20
     assert all(p.exists() for p in PORT_FILES)
+    assert {ROOT / f for f in CONTROL_PLANE} <= set(PORT_FILES)
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
