@@ -80,7 +80,23 @@ Phases (any failure ends the script with a non-zero exit code):
    back; retirements drop their Sigma rows with ``drop_adapter``.  Every
    request must finish, the lifecycle's counters must match the events
    and the gates, and the four grouped kernels' counts, zeroed just
-   before, must rise.
+   before, must rise;
+8. train: (a) one ``make_train_step`` and one ``make_lora_train_step``
+   step of a reduced model (phase 3's, f32) on the card against the CPU
+   from the same weights; (b) ``train_lora_collection`` (the paper's
+   §5.1: one LoRA per task on a shared base) on mistral-7b at full width
+   and depth (32 layers, d 4096, vocab 32000 in chunks of 8000, rank 16
+   on q/k/v, bf16 base, remat), 2 tasks x 8 steps of batch 4 x seq 64,
+   every loss finite; (c) ``train_full`` at mistral-7b's width cut to one
+   layer (the optimizer state of all 32 does not fit the card): 6 steps,
+   async checkpoints every 2 steps into a temporary directory, a node
+   failure injected at step 5, and the restarted run's final parameters
+   and optimizer state equal to a clean run's bit for bit under
+   ``torch.use_deterministic_algorithms(True)``, in a child process
+   started with ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` (cuBLAS reads it when
+   a process creates its first handle; set for the whole script it slowed
+   the serve phase's host-bound steps).  Step times are host clock around
+   synced work; no port kernel may launch here.
 
 The last lines are the kernel names, the card's name and power limit, one
 JSON object with each kernel's numbers, and the ok line.
@@ -88,6 +104,7 @@ JSON object with each kernel's numbers, and the ok line.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -1081,6 +1098,332 @@ def phase_lifecycle(dev):
     return launches
 
 
+def _sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _reduced_cfg():
+    """phase 3's reduced model: 2 layers, d 64, 4 heads over 2 KV heads."""
+    import dataclasses as dc
+    from repro_torch.configs import smoke_config
+    return dc.replace(smoke_config("mistral-7b"), num_layers=2, d_model=64,
+                      num_heads=4, num_kv_heads=2, d_ff=128, vocab_size=64)
+
+
+def train_card_vs_cpu(dev) -> dict:
+    """(a) One ``make_train_step`` and one ``make_lora_train_step`` step in
+    f32 from the same weights on the card and on the CPU.  AdamW's eps is
+    1 here: at the default 1e-8 a first step moves each weight by the
+    learning rate times the sign of its gradient, so a weight whose
+    gradient is ~0 steps by rounding noise on either device; with eps 1
+    the step is proportional to the gradient (every op of the update still
+    runs), and the updated weights differ by lr times the gradients'
+    difference.  The layers' matrices are scaled by 0.1 to std ~1/sqrt(d):
+    the stacked-leaf init rule draws them at 1/sqrt(2) (the layer count as
+    fan-in), which grows the residual stream ~1e4-fold and makes f32
+    gradients ill-conditioned (two f32 orders then differ by up to ~5e-4
+    of the largest gradient; scaled, ~5e-7)."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.param import init_params, tree_leaves, tree_map
+    from repro_torch.training.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.training.step import (make_lora_train_step,
+                                           make_train_step)
+    cfg = _reduced_cfg()
+    base = init_params(tf.model_defs(cfg), torch.Generator().manual_seed(0),
+                       "cpu", dtype_override=torch.float32)
+    base["layers"] = tree_map(lambda t: 0.1 * t if t.ndim >= 3 else t,
+                              base["layers"])
+    lora = init_params(tf.lora_defs_tree(cfg),
+                       torch.Generator().manual_seed(1), "cpu",
+                       dtype_override=torch.float32)
+    g = torch.Generator().manual_seed(2)
+    # b starts at zero, which leaves a without a gradient: draw it too
+    lora = tree_map(lambda t: t if t.abs().sum() > 0 else 0.05 * torch.randn(
+        t.shape, generator=g), lora)
+    batch = {"tokens": torch.randint(0, 64, (4, 24), generator=g),
+             "targets": torch.randint(-1, 64, (4, 24), generator=g)}
+    opt_cfg = {"full": AdamWConfig(eps=1.0),
+               "lora": AdamWConfig(lr=1e-3, weight_decay=0.0, eps=1.0)}
+    report = {}
+    for kind in ("full", "lora"):
+        out = []
+        for d in ("cpu", dev):
+            b = tree_map(lambda t: t.to(d), base)
+            bt = {k: v.to(d) for k, v in batch.items()}
+            if kind == "full":
+                p, opt, m = make_train_step(cfg, opt_cfg[kind])(
+                    b, init_opt_state(b), bt)
+            else:
+                lp = tree_map(lambda t: t.to(d), lora)
+                p, opt, m = make_lora_train_step(cfg, opt_cfg[kind])(
+                    b, lp, init_opt_state(lp), bt)
+            out.append((float(m["loss"]),
+                        [t.float().cpu() for t in tree_leaves(p)],
+                        [t.cpu() for t in tree_leaves(opt["master"])],
+                        [t.cpu() for t in tree_leaves(opt["mu"])]))
+        (lc, pc, mc, uc), (lg, pg, mg, ug) = out
+        d_loss = abs(lc - lg)
+        d_master = max(float((a - b).abs().max()) for a, b in zip(mc, mg))
+        # mu is (1 - b1) times the clipped gradient
+        scale = max(float(a.abs().max()) for a in uc)
+        d_mu = max(float((a - b).abs().max()) for a, b in zip(uc, ug)) / scale
+        # full steps return bf16 params, each its master's cast: within one
+        # bf16 rounding of each other where the masters straddle a midpoint
+        d_param = max(float(((a - b).abs() / torch.clamp(
+            torch.maximum(a.abs(), b.abs()), min=1e-30)).max())
+            for a, b in zip(pc, pg)) if kind == "full" else d_master
+        # f32 throughout: the loss within 1e-5; the gradients (mu) within
+        # 1e-5 of the largest (JAX and the port on the CPU: 5e-7); the
+        # weights within lr times that (the clipped gradients are at most
+        # 1) plus one f32 rounding of the largest
+        tol_master = (opt_cfg[kind].lr * 1e-5 + torch.finfo(
+            torch.float32).eps * max(float(a.abs().max()) for a in mc))
+        assert d_loss <= 1e-5, (kind, lc, lg)
+        assert d_mu <= 1e-5, (kind, d_mu)
+        assert d_master <= tol_master, (kind, d_master, tol_master)
+        if kind == "full":
+            assert d_param <= 2.0 ** -7, (kind, d_param)
+        report[kind] = dict(loss_cpu=lc, loss_card=lg, max_abs_dloss=d_loss,
+                            max_rel_dgrad=d_mu, max_abs_dmaster=d_master,
+                            max_rel_dparam=d_param)
+        log(f"[train] (a) {kind} step on the card == the CPU's: "
+            + json.dumps(report[kind]) + f" (tol: loss 1e-5, gradients 1e-5 "
+            f"of the largest, master {tol_master:.3g}, bf16 params one "
+            f"rounding; f32, AdamW eps 1)")
+    return report
+
+
+def _timed_steps(module, name, dev, times, losses):
+    """Wrap ``module.<name>`` (a train-step builder) so that each step is
+    timed (host clock around synced work) and its loss kept; returns the
+    original."""
+    real = getattr(module, name)
+
+    def build(*a, **kw):
+        step = real(*a, **kw)
+
+        def run(*args):
+            _sync(dev)
+            t0 = time.perf_counter()
+            out = step(*args)
+            losses.append(float(out[2]["loss"]))
+            _sync(dev)
+            times.append(time.perf_counter() - t0)
+            return out
+        return run
+
+    setattr(module, name, build)
+    return real
+
+
+def train_lora_collection_run(dev, cfg, n_tasks, steps, batch, seq) -> dict:
+    """(b) ``train_lora_collection`` on ``cfg``: one LoRA per task on a
+    shared seeded base, every loss finite."""
+    import shutil
+    import tempfile
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.param import init_params
+    out = tempfile.mkdtemp(prefix="chip_smoke_loras_")
+    times, losses = [], []
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+    base = init_params(tf.model_defs(cfg),
+                       torch.Generator(dev).manual_seed(0), dev)
+    if torch.device(dev).type == "cuda":
+        # the peak of training, not of the seeded draw's f32 temporaries
+        torch.cuda.reset_peak_memory_stats(dev)
+    real = _timed_steps(train, "make_lora_train_step", dev, times, losses)
+    t0 = time.perf_counter()
+    try:
+        res = train.train_lora_collection(
+            cfg, n_tasks, steps, batch, seq, out, base_params=base,
+            device=dev, log_every=steps)
+        files = sorted(os.listdir(out))
+    finally:
+        train.make_lora_train_step = real
+        shutil.rmtree(out, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    assert len(losses) == n_tasks * steps, losses
+    assert all(map(math.isfinite, losses)), losses
+    assert files == [f"lora_task{t}.npz" for t in range(n_tasks)] + [
+        "summary.json"], files
+    # the first step of each task pays for the allocator and cuBLAS warm-up
+    steady = sorted(t for i, t in enumerate(times) if i % steps)
+    step_s = steady[len(steady) // 2]
+    rep = dict(layers=cfg.num_layers, d_model=cfg.d_model,
+               vocab=cfg.vocab_size, logits_chunk_vocab=cfg.logits_chunk_vocab,
+               rank=cfg.lora.rank, targets=list(cfg.lora.targets),
+               base_dtype="bfloat16", remat=cfg.remat, batch=batch, seq=seq,
+               tasks=n_tasks, steps=steps, losses=losses,
+               final_losses=[r["final_loss"] for r in res.values()],
+               step_ms_median=1e3 * step_s, step_ms_all=[1e3 * t
+                                                         for t in times],
+               tokens_per_s=batch * seq / step_s, wall_s=wall)
+    if torch.device(dev).type == "cuda":
+        rep["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated(
+            dev) / 1e9
+    del base
+    return rep
+
+
+def train_restart_run(dev, cfg, steps, batch, seq, ckpt_every,
+                      fail_at) -> dict:
+    """(c) ``train_full`` (the fault-tolerant runner, async checkpoints)
+    clean, then with a node failure injected at step ``fail_at``: the final
+    states must be equal bit for bit.  Deterministic algorithms are on for
+    the two runs (the embedding's backward accumulates with index_put_)."""
+    import shutil
+    import tempfile
+    from repro_torch.ft.failures import FailurePlan
+    from repro_torch.launch import train
+    from repro_torch.models.param import tree_leaves
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    times, losses, saves, restores = [], [], [], []
+    real_step = _timed_steps(train, "make_train_step", dev, times, losses)
+    real_save, real_restore = train.save_checkpoint, train.restore_checkpoint
+
+    def save(*a, **kw):
+        t0 = time.perf_counter()
+        path = real_save(*a, **kw)
+        saves.append(dict(step=a[1], blocking=kw.get("blocking", True),
+                          s=time.perf_counter() - t0))
+        return path
+
+    def restore(*a, **kw):
+        _sync(dev)
+        t0 = time.perf_counter()
+        out = real_restore(*a, **kw)
+        _sync(dev)
+        restores.append(dict(step=a[1], s=time.perf_counter() - t0))
+        return out
+
+    train.save_checkpoint, train.restore_checkpoint = save, restore
+    was_det = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    try:
+        kw = dict(steps=steps, batch=batch, seq=seq, ckpt_every=ckpt_every,
+                  device=dev, log_every=steps)
+        t0 = time.perf_counter()
+        clean = train.train_full(cfg, ckpt_dir=os.path.join(tmp, "clean"),
+                                 **kw)
+        clean_s = time.perf_counter() - t0
+        shutil.rmtree(os.path.join(tmp, "clean"))
+        n_clean_saves = len(saves)
+        t0 = time.perf_counter()
+        faulty = train.train_full(cfg, ckpt_dir=os.path.join(tmp, "faulty"),
+                                  plan=FailurePlan(fail_at_steps=(fail_at,)),
+                                  **kw)
+        faulty_s = time.perf_counter() - t0
+        ckpt = os.path.join(tmp, "faulty", f"step_{steps}")
+        nbytes = sum(os.path.getsize(os.path.join(ckpt, f))
+                     for f in os.listdir(ckpt))
+        equal = all(torch.equal(a, b) for a, b in
+                    zip(tree_leaves(clean), tree_leaves(faulty)))
+        n_leaves = len(tree_leaves(clean))
+    finally:
+        torch.use_deterministic_algorithms(was_det)
+        train.make_train_step = real_step
+        train.save_checkpoint, train.restore_checkpoint = (real_save,
+                                                           real_restore)
+        shutil.rmtree(tmp, ignore_errors=True)
+    assert equal, "the restarted run's final state differs from the clean run's"
+    assert len(restores) == 1 and restores[0]["step"] == (
+        fail_at // ckpt_every) * ckpt_every, restores
+    assert len(losses) == 2 * steps + fail_at % ckpt_every, losses
+    assert all(map(math.isfinite, losses)), losses
+    steady = sorted(times[1:steps])
+    step_s = steady[len(steady) // 2]
+    blocking = [s["s"] for s in saves if s["blocking"]]
+    rep = dict(layers=cfg.num_layers, d_model=cfg.d_model,
+               vocab=cfg.vocab_size, d_ff=cfg.d_ff, batch=batch, seq=seq,
+               steps=steps, ckpt_every=ckpt_every, fail_at=fail_at,
+               final_state_equal_bitwise=equal, leaves=n_leaves,
+               checkpoint_bytes=nbytes, checkpoint_gb=nbytes / 1e9,
+               save_blocking_s=blocking,
+               save_async_host_copy_s=[s["s"] for s in saves
+                                       if not s["blocking"]],
+               restore_s=[r["s"] for r in restores],
+               saves_clean=n_clean_saves, saves_faulty=len(saves)
+               - n_clean_saves, step_ms_median=1e3 * step_s,
+               step_ms_min=1e3 * min(times),
+               step_ms_all=[1e3 * t for t in times],
+               tokens_per_s=batch * seq / step_s, clean_run_s=clean_s,
+               faulty_run_s=faulty_s, losses=losses)
+    if torch.device(dev).type == "cuda":
+        rep["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated(
+            dev) / 1e9
+    return rep
+
+
+def _kernel_counts() -> dict:
+    """Every kernel wrapper's launch counter, by module and name."""
+    from repro_torch.kernels import (adapter_quant, flash_decode,
+                                     fused_decode, jd_apply, kv_quant, sgmv)
+    return {f"{m.__name__.rsplit('.', 1)[1]}.{k}": v
+            for m in (adapter_quant, flash_decode, fused_decode, jd_apply,
+                      kv_quant, sgmv)
+            for k, v in vars(m).items() if k.startswith("LAUNCHES")}
+
+
+def phase_train(dev):
+    """Training and checkpoints on the card: no kernel of the port runs on
+    this path (plain torch ops with autograd, as the JAX package's
+    training runs no Pallas kernel); the counters confirm it, here and
+    in the child process of part (c)."""
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    before = _kernel_counts()
+    train_card_vs_cpu(dev)
+    cfg = get_config("mistral-7b")
+    rep = train_lora_collection_run(dev, cfg, n_tasks=2, steps=8, batch=4,
+                                    seq=64)
+    log("[train] (b) lora collection " + json.dumps(rep))
+    log("[train] (b) reduced: [] (mistral-7b: all 32 layers, d 4096, vocab "
+        "32000, rank 16 on q/k/v, bf16 base, remat)")
+    del rep
+    torch.cuda.empty_cache()    # the child needs ~36 GB of the card
+    child = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), RESTART_CHILD],
+        env=dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8"),
+        capture_output=True, text=True, timeout=900)
+    sys.stdout.write(child.stdout)
+    assert child.returncode == 0, child.stderr[-4000:]
+    log("[train] (c) reduced: [num_layers 32 -> 1] (bf16 params, f32 master,"
+        " mu, nu and bf16 grads of all 32 layers are ~116 GB, over the "
+        "card's 80 GB)")
+    moved = {k: v - before[k] for k, v in _kernel_counts().items()
+             if v != before[k]}
+    assert not moved, f"the train path launched the port's kernels: {moved}"
+    log(f"[train] the port's kernel launches on this path: 0 (all "
+        f"{len(before)} counters unchanged)")
+    log(f"[train] phase {time.perf_counter() - t0:.1f} s")
+
+
+RESTART_CHILD = "--train-restart-child"
+
+
+def restart_child(dev) -> None:
+    """Phase 8 (c) in its own process, under cuBLAS's deterministic
+    workspace (the parent sets ``CUBLAS_WORKSPACE_CONFIG``)."""
+    import dataclasses as dc
+    from repro_torch.configs import get_config
+    assert os.environ.get("CUBLAS_WORKSPACE_CONFIG") == ":4096:8"
+    # a first allocation sets up the device's allocator, whose peak
+    # statistics train_restart_run resets
+    torch.zeros((), device=dev)
+    cfg = dc.replace(get_config("mistral-7b"), num_layers=1)
+    before = _kernel_counts()
+    rep = train_restart_run(dev, cfg, steps=6, batch=4, seq=64,
+                            ckpt_every=2, fail_at=5)
+    assert _kernel_counts() == before, "part (c) launched a port kernel"
+    log("[train] (c) full training with a restart " + json.dumps(rep))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1088,6 +1431,9 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:] == [RESTART_CHILD]:
+        restart_child(dev)
+        return 0
     log(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} device "
         f"{torch.cuda.get_device_name(0)}")
@@ -1101,6 +1447,7 @@ def main() -> int:
     by_path["lifecycle"] = phase_lifecycle(dev)
     for name, n in by_path["lifecycle"].items():
         launches[name] += n
+    phase_train(dev)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,

@@ -1,4 +1,5 @@
-"""Carry parameter and adapter trees across from numpy to the port.
+"""Carry parameter, adapter and optimizer-state trees across between numpy
+and the port.
 
 The JAX package's trees (parameters from ``models/param.py``, adapter
 bundles from ``launch/serve.py`` or ``core/collection.py``) become nested
@@ -10,8 +11,10 @@ field, into the port's types of ``core/``: the functions below read the
 fields with ``np.asarray`` and import nothing of the JAX package.
 
 bf16 arrives as ``ml_dtypes.bfloat16``, which ``torch.from_numpy``
-refuses; it crosses as its raw 16 bits (``view(np.uint16)``) and is
+refuses; it crosses as its raw 16 bits (``view(np.int16)``) and is
 re-viewed as ``torch.bfloat16`` on the other side, which is exact.
+:func:`to_numpy` brings a tree of tensors back for comparison with the
+JAX package's results.
 """
 from __future__ import annotations
 
@@ -24,20 +27,30 @@ from .core.jd import JDResult
 
 
 def array_to_tensor(a, device="cpu") -> torch.Tensor:
-    a = np.asarray(a)
+    # np.array, not np.ascontiguousarray, which makes a 0-d array 1-d
+    a = np.array(a, order="C", copy=True)
     if a.dtype.name == "bfloat16":
-        bits = np.ascontiguousarray(a).view(np.uint16)
-        t = torch.from_numpy(bits.copy()).view(torch.bfloat16)
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
     else:
-        t = torch.from_numpy(np.ascontiguousarray(a).copy())
+        t = torch.from_numpy(a)
     return t.to(device)
 
 
 def to_torch(tree, device="cpu"):
-    """Nested dict of arrays -> the same dict of tensors on ``device``."""
+    """Nested dict of arrays -> the same dict of tensors on ``device``: a
+    parameter or adapter tree, or an optimizer state (``{"master", "mu",
+    "nu": tree, "count": 0-d int32}``)."""
     if isinstance(tree, dict):
         return {k: to_torch(v, device) for k, v in tree.items()}
     return array_to_tensor(tree, device)
+
+
+def to_numpy(tree):
+    """The inverse of :func:`to_torch` for comparisons: nested dict of
+    tensors -> the same dict of numpy arrays (bf16 as its exact f32)."""
+    if isinstance(tree, dict):
+        return {k: to_numpy(v) for k, v in tree.items()}
+    return tensor_to_array(tree)
 
 
 def tensor_to_array(t: torch.Tensor) -> np.ndarray:

@@ -1,6 +1,6 @@
 """Dense transformer building blocks (the port of ``models/layers.py``):
-norms, RoPE, GQA attention for prefill and decode, SwiGLU MLP, embeddings
-and logits.
+norms, RoPE, GQA attention for training, prefill and decode, SwiGLU MLP,
+embeddings, logits and the memory-safe cross-entropy.
 
 Plain functions on tensors; parameters are nested dicts of tensors in the
 JAX package's layouts (``wq (d, H, hd)``, ``wo (H, hd, d)``, ...).  The
@@ -201,12 +201,13 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def attention_fwd(p: Dict, x: torch.Tensor, cfg, *,
                   positions: torch.Tensor,
-                  mode: str = "prefill",          # prefill | decode
+                  mode: str = "prefill",   # train | prefill | decode
                   cache: Optional[Dict] = None,
                   lora_ctx=None, causal: bool = True):
     """Self-attention over x; returns (y, new_cache) where ``cache`` and
     ``new_cache`` are ``{"k", "v", "index"}`` dicts for one layer
-    (``k/v (B, S_max, Kv, hd)``, ``index`` a scalar).  Prefill writes the
+    (``k/v (B, S_max, Kv, hd)``, ``index`` a scalar).  Train attends
+    within x and takes no cache (``new_cache`` is None); prefill writes the
     prompt at position 0 and attends within it; decode writes the new
     token at ``index`` and attends over ``[0, index + S)``.  Neither
     mutates ``cache``."""
@@ -225,9 +226,11 @@ def attention_fwd(p: Dict, x: torch.Tensor, cfg, *,
     cos, sin = rope_tables(positions, hd, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    if cache is None:
+    if mode == "train":
+        keys, vals, kv_len, q_offset, new_cache = k, v, None, 0, None
+    elif cache is None:
         raise ValueError("attention_fwd needs a cache in prefill/decode")
-    if mode == "prefill":
+    elif mode == "prefill":
         keys = cache["k"].clone()
         vals = cache["v"].clone()
         keys[:, :S] = k.to(keys.dtype)
@@ -286,7 +289,7 @@ def mlp_fwd(p: Dict, x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# embeddings & logits
+# embeddings, logits & losses
 # ---------------------------------------------------------------------------
 
 
@@ -314,3 +317,46 @@ def logits_fwd(p: Dict, h: torch.Tensor, cfg) -> torch.Tensor:
     the JAX package (so argmax streams stay comparable)."""
     h = rms_norm(h, p["final_norm"], cfg.norm_eps)
     return torch.einsum("bsd,dv->bsv", h, _unembed_matrix(p, cfg))
+
+
+def cross_entropy(p: Dict, h: torch.Tensor, targets: torch.Tensor, cfg,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token-mean CE.  With cfg.logits_chunk_vocab > 0, never materializes the
+    full (B, S, V) logits: loops over vocab chunks with an online logsumexp.
+
+    The chunks are the JAX module's (the same chunk-count search), so the
+    sums run over the same pieces; as there, each chunk's logits are taken
+    in the model dtype and then cast to f32, and the target logit is an f32
+    product of ``h`` and the target's unembedding column."""
+    h = rms_norm(h, p["final_norm"], cfg.norm_eps)
+    W = _unembed_matrix(p, cfg)                   # (d, Vp)
+    Vp = W.shape[1]
+    tgt = torch.clamp(targets, 0, Vp - 1).long()
+    if mask is None:
+        mask = (targets >= 0).float()
+    chunk = cfg.logits_chunk_vocab
+    if chunk and Vp > chunk:
+        # pick the smallest chunk count >= Vp/target that divides Vp
+        n = -(-Vp // chunk)
+        while Vp % n and n < min(Vp, 4096):
+            n += 1
+        chunk = Vp // n if Vp % n == 0 else 0
+    if chunk and Vp % chunk == 0 and Vp > chunk:
+        m = torch.full(h.shape[:2], NEG_INF, device=h.device)
+        l = torch.zeros(h.shape[:2], device=h.device)
+        for i in range(Vp // chunk):
+            lg = torch.einsum("bsd,dv->bsv", h,
+                              W[:, i * chunk:(i + 1) * chunk]).float()
+            m_new = torch.maximum(m, lg.amax(dim=-1))
+            l = l * torch.exp(m - m_new) + torch.exp(
+                lg - m_new[..., None]).sum(-1)
+            m = m_new
+        lse = m + torch.log(torch.clamp(l, min=1e-30))
+        tgt_logit = torch.einsum("bsd,bsd->bs", h.float(),
+                                 W.T[tgt].float())
+    else:
+        logits = torch.einsum("bsd,dv->bsv", h, W).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt_logit = torch.gather(logits, -1, tgt[..., None])[..., 0]
+    nll = (lse - tgt_logit) * mask
+    return torch.sum(nll) / torch.clamp(torch.sum(mask), min=1.0)

@@ -18,6 +18,8 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from .param import ParamDef
+
 
 @dataclasses.dataclass
 class LoRAContext:
@@ -27,10 +29,43 @@ class LoRAContext:
     scaling: float = 1.0
 
 
+def single_lora_defs(d_in: int, d_out: int, rank: int) -> Dict:
+    return {
+        "a": ParamDef((rank, d_in), ("rank", "d_model"), scale=0.02),
+        "b": ParamDef((d_out, rank), (None, "rank"), init="zeros"),
+    }
+
+
+def target_dims(cfg, target: str) -> tuple:
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    H, Kv = cfg.num_heads, cfg.num_kv_heads
+    if target in ("q", "xq"):
+        return d, H * hd
+    if target in ("k", "v", "xk", "xv"):
+        return d, Kv * hd
+    if target == "o":
+        return H * hd, d
+    if target == "ssm_in":
+        s = cfg.ssm
+        di = s.d_inner(d)
+        return d, 2 * di + 2 * s.n_groups * s.d_state + s.n_heads(d)
+    if target == "ssm_out":
+        return cfg.ssm.d_inner(d), d
+    raise ValueError(target)
+
+
+def lora_layer_defs(cfg, targets=None) -> Dict:
+    targets = targets or cfg.lora.targets
+    return {t: single_lora_defs(*target_dims(cfg, t), cfg.lora.rank)
+            for t in targets}
+
+
 def apply(ctx: Optional[LoRAContext], target: str, x: torch.Tensor,
           y: torch.Tensor) -> torch.Tensor:
     """y + scaled LoRA delta for `target`; no-op when absent.  The delta is
-    computed in x's dtype, cast to f32 before ``scaling``, then to y's."""
+    computed in x's dtype, cast to f32 before ``scaling``, then to y's.
+    Differentiable: training takes gradients to ``a`` and ``b`` of the
+    ``single`` mode through it."""
     if ctx is None or ctx.params is None or target not in ctx.params:
         return y
     p = ctx.params[target]
