@@ -97,6 +97,25 @@ Phases (any failure ends the script with a non-zero exit code):
    a process creates its first handle; set for the whole script it slowed
    the serve phase's host-bound steps).  Step times are host clock around
    synced work; no port kernel may launch here.
+9. families: the other model families at the published widths, one model
+   on the card at a time (random weights from seeded generators).  (a)
+   each family's smoke config in f32 (weights, activations, cache;
+   matrices at 1/sqrt(fan-in)): prefill and 3 decode steps on the card
+   against the CPU from the same weights, within ``FAMILY_PARITY_ATOL``, every MoE routing decision on
+   the same experts (the smallest top-k margin printed); (b) ``run_real``
+   at full width and depth: granite-moe-3b-a800m (lora and jd) and
+   mamba2-2.7b on the unfused path, pixtral-12b on ``fused`` in lora and
+   jd and with q/k/v adapters only, after rows 1, 3 and 5 are held to
+   their plain versions at pixtral's shape (d_out 5120) and timed there;
+   every request must finish and rows 1, 3 and 5's counts, zeroed just
+   before, must rise; then one profiled decode step of granite and mamba2
+   (host and device ms, idle share); (c) at full width and depth, prefill
+   and 3 decode steps held to the train-mode forward's logits at the same
+   positions, in bf16 within ``FAMILY_BF16_ATOL`` and in f32 within
+   ``FAMILY_F32_ATOL``, each matrix drawn at 1/sqrt(its fan-in):
+   deepseek-moe-16b, mamba2-2.7b and zamba2-2.7b (529 prompt tokens:
+   three SSD chunks, the last padded), whisper-small over 1500 frames,
+   and pixtral-12b after 1024 patches.
 
 The last lines are the kernel names, the card's name and power limit, one
 JSON object with each kernel's numbers, and the ok line.
@@ -1424,6 +1443,201 @@ def restart_child(dev) -> None:
     log("[train] (c) full training with a restart " + json.dumps(rep))
 
 
+FAMILY_ARCHS = ("deepseek-moe-16b", "granite-moe-3b-a800m", "mamba2-2.7b",
+                "zamba2-2.7b", "whisper-small", "pixtral-12b")
+# (a) f32 on both sides, TF32 off: the CPU tests' logit tolerance against
+# the JAX package (tests/test_torch_families.py, 4x its measured 2.4e-5)
+FAMILY_PARITY_ATOL = 1e-4
+# (c) decode against the train-mode forward at full width, in bf16 (the
+# serving dtype) and in f32, each matrix at 1/sqrt(its fan-in).  Over seeds
+# 0-2 (`python -m repro_torch.launch.families --arch X [--f32]` on an
+# NVIDIA H100 80GB HBM3 at 700 W) the f32 runs differed by 2.9e-6-2.3e-4
+# and the bf16 runs by 0.032-0.041 (whisper-small), 0.17-0.21
+# (pixtral-12b), 0.19-0.48 (deepseek-moe-16b), 0.33-0.41 (mamba2-2.7b)
+# and 0.42-0.59 (zamba2-2.7b), on logits up to 2.5-7: bf16 rounding in
+# 12-64 random layers (and, in the MoE, near-tied experts) that f32 cuts
+# 1700-80000x, so no fault of the decode path.  Each bound is ~2x its
+# model's largest reading; a logic fault (a wrong cache slice or position)
+# moves the logits by their own scale and fails both
+FAMILY_BF16_ATOL = {"deepseek-moe-16b": 1.0, "mamba2-2.7b": 0.8,
+                    "zamba2-2.7b": 1.2, "whisper-small": 0.1,
+                    "pixtral-12b": 0.5}
+FAMILY_F32_ATOL = 5e-4
+FAMILY_SERVE = (("granite-moe-3b-a800m", "lora", "unfused", None),
+                ("granite-moe-3b-a800m", "jd", "unfused", None),
+                ("mamba2-2.7b", "lora", "unfused", None),
+                ("pixtral-12b", "lora", "fused", None),
+                ("pixtral-12b", "jd", "fused", None),
+                ("pixtral-12b", "lora", "fused", ("q", "k", "v")))
+FAMILY_CHECKS = ("deepseek-moe-16b", "mamba2-2.7b", "zamba2-2.7b",
+                 "whisper-small", "pixtral-12b")
+FAMILY_REQUESTS = 16
+
+
+def _free(dev) -> None:
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+
+def pixtral_kernel_rows(dev) -> dict:
+    """Rows 1, 3 and 5 at pixtral-12b's decode shape (H 32, Kv 8, hd 128,
+    d_out 5120, rank 16, the serving bucket), held to their plain versions
+    under checks' tolerances, then timed."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import checks, ref
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.fused_decode import (fused_decode_jd,
+                                                  fused_decode_lora)
+    cfg = get_config("pixtral-12b")
+    h, kv, hd, d_out = (cfg.num_heads, cfg.num_kv_heads,
+                        cfg.resolved_head_dim, cfg.d_model)
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    case = checks.attention_case(B, h, kv, hd, S_MAX, BUCKET, KV_LEN, bf16,
+                                 gen, dev)
+    case["ids"] = torch.randint(0, N_ADAPTERS, (B,), generator=gen,
+                                device=dev, dtype=torch.int32)
+    q, k, v, kl, ids = (case[x] for x in ("q", "k", "v", "kv_len", "ids"))
+    lora = checks.lora_banks(N_ADAPTERS, R, h * hd, d_out, bf16, gen, dev,
+                             False)
+    jd = checks.jd_banks(1, N_ADAPTERS, R, h * hd, d_out, bf16, gen, dev,
+                         False, False)
+    largs = (lora["A"], lora["B"], None, None)
+    jargs = (jd["U"], jd["V"], jd["sigma"], jd["cluster_of"])
+    fused = [checks.ATTN_KERNEL, checks.EXPAND_KERNEL]
+    out = {}
+    for name, res, fn, plain, kernels, nbytes, flops in (
+            ("flash_decode", checks.check_flash_decode(case),
+             lambda: flash_decode(q, k, v, kl),
+             lambda: ref.flash_decode_ref(q, k, v, kl), [checks.ATTN_KERNEL],
+             checks.attention_bytes(case), checks.attention_flops(case)),
+            ("fused_decode_lora", checks.check_fused_lora(case, lora),
+             lambda: fused_decode_lora(q, k, v, kl, ids, *largs),
+             lambda: ref.fused_decode_lora_ref(q, k, v, kl, ids, *largs),
+             fused, checks.fused_bytes(case, lora, "lora"),
+             checks.fused_flops(case, lora, "lora")),
+            ("fused_decode_jd", checks.check_fused_jd(case, jd),
+             lambda: fused_decode_jd(q, k, v, kl, ids, *jargs),
+             lambda: ref.fused_decode_jd_ref(q, k, v, kl, ids, *jargs),
+             fused, checks.fused_bytes(case, jd, "jd"),
+             checks.fused_flops(case, jd, "jd"))):
+        b_ms, b_by = checks.bound_ms(nbytes, flops)
+        out[name] = dict(
+            shape=f"B {B}, H {h}, Kv {kv}, hd {hd}, d_out {d_out}, bucket "
+                  f"{BUCKET}, kv_len {KV_LEN}",
+            max_abs_err=res["max_abs_err"], tolerance=res["tolerance"],
+            ms=checks.cuda_ms(fn), device_ms=checks.device_ms(fn, kernels),
+            plain_ms=checks.cuda_ms(plain), bound_ms=b_ms, bound_by=b_by)
+        log(f"[families] pixtral-12b {name} ok at d_out {d_out}: "
+            + json.dumps(out[name]))
+    return out
+
+
+def phase_families(dev, rows) -> dict:
+    """Phase 9; returns rows 1, 3 and 5's launches on its serving runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_decode, fused_decode
+    from repro_torch.launch import families
+    from repro_torch.launch.profile_decode import profile_decode
+    from repro_torch.launch.serve import run_real
+    from repro_torch.serving.real_executor import RealModelExecutor
+    t_phase = time.perf_counter()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True).stdout.strip().splitlines()[0]
+    log(f"[families] card: {smi}")
+
+    # (a) reduced f32 parity, card against the CPU
+    for arch in FAMILY_ARCHS:
+        r = families.card_vs_cpu(arch, dev)
+        assert r["finite"], r
+        assert r["routes_equal"], f"{arch}: the card routed otherwise: {r}"
+        assert r["max_abs_diff"] < FAMILY_PARITY_ATOL, r
+        log(f"[families] (a) {json.dumps(r)} (tol {FAMILY_PARITY_ATOL}, "
+            f"f32)")
+
+    # (b) served at full width and depth
+    for name, r in pixtral_kernel_rows(dev).items():
+        rows[name]["pixtral_12b"] = r
+    flash_decode.LAUNCHES = 0
+    fused_decode.LAUNCHES_LORA = fused_decode.LAUNCHES_JD = 0
+    step_s = []
+    decode_logits = RealModelExecutor.decode_logits
+
+    def timed(self):
+        _sync(self.device)
+        t0 = time.perf_counter()
+        out = decode_logits(self)
+        _sync(self.device)
+        step_s.append(time.perf_counter() - t0)
+        return out
+    for arch, mode, path, targets in FAMILY_SERVE:
+        cfg = get_config(arch)
+        _free(dev)
+        step_s.clear()
+        t0 = time.perf_counter()
+        RealModelExecutor.decode_logits = timed
+        try:
+            stats = run_real(cfg, N_ADAPTERS, FAMILY_REQUESTS, mode,
+                             max_batch=MAX_BATCH, seed=0, decode_path=path,
+                             device=dev, targets=targets)
+        finally:
+            RealModelExecutor.decode_logits = decode_logits
+        _sync(dev)
+        assert stats["n_requests"] == FAMILY_REQUESTS, stats
+        assert stats["n_tokens"] == FAMILY_REQUESTS * 8, stats
+        row = dict(arch=arch, mode=mode, decode_path=path,
+                   targets=list(targets or ("q", "k", "v") + (
+                       ("o",) if path != "unfused" else ())),
+                   layers=cfg.num_layers, d_model=cfg.d_model,
+                   n_requests=stats["n_requests"], n_tokens=stats["n_tokens"],
+                   throughput_tps=stats["throughput_tps"],
+                   tpot_p50_s=stats["tpot_p50_s"],
+                   host_ms_per_step_median=1e3 * sorted(step_s)[
+                       len(step_s) // 2],
+                   decode_steps=len(step_s),
+                   run_wall_s=time.perf_counter() - t0,
+                   max_memory_allocated_gb=torch.cuda.max_memory_allocated(
+                       dev) / 1e9, card=smi)
+        log("[families] (b) serve " + json.dumps(row))
+    launches = {"flash_decode": flash_decode.LAUNCHES,
+                "fused_decode_lora": fused_decode.LAUNCHES_LORA,
+                "fused_decode_jd": fused_decode.LAUNCHES_JD}
+    log("[families] (b) launches on the served pixtral-12b runs: "
+        + json.dumps(launches))
+    for name, n in launches.items():
+        assert n > 0, f"{name} was never launched at pixtral's width"
+    for arch in ("granite-moe-3b-a800m", "mamba2-2.7b"):
+        _free(dev)
+        prof = profile_decode(get_config(arch), "lora", "unfused",
+                              n_adapters=N_ADAPTERS, device=dev)
+        prof["card"] = smi
+        prof["top_kernels"] = prof["top_kernels"][:3]
+        log(f"[families] (b) profile {arch} " + json.dumps(prof))
+
+    # (c) full width and depth, decode held to the train-mode forward
+    for arch in FAMILY_CHECKS:
+        for dtype, tol in ((torch.bfloat16, FAMILY_BF16_ATOL[arch]),
+                           (torch.float32, FAMILY_F32_ATOL)):
+            _free(dev)
+            r = families.decode_check(get_config(arch), dev, dtype)
+            r["card"] = smi
+            log(f"[families] (c) {json.dumps(r)} (tol {tol})")
+            assert r["finite"], r
+            assert r["max_abs_diff"] < tol, r
+    _free(dev)
+    log("[families] reduced: (a) smoke configs; (b) "
+        f"{FAMILY_REQUESTS} requests of ~24 + 8 tokens; (c) batch "
+        f"{families.BATCH}, {families.PROMPT} prompt tokens (SSM models "
+        f"2 chunks + {families.PROMPT + 1}) + {families.STEPS} steps; no "
+        f"width or depth cut")
+    log(f"[families] phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1448,6 +1662,9 @@ def main() -> int:
     for name, n in by_path["lifecycle"].items():
         launches[name] += n
     phase_train(dev)
+    by_path["families"] = phase_families(dev, rows)
+    for name, n in by_path["families"].items():
+        launches[name] += n
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
@@ -1464,9 +1681,10 @@ def main() -> int:
                  "tolerance": r["tolerance"]}
         if "ms_int8" in r:
             entry["ms_int8_banks"] = r["ms_int8"]
-        if name in by_path["lifecycle"]:
-            entry["launches_by_path"] = {
-                path: counts[name] for path, counts in by_path.items()}
+        paths = {path: counts[name] for path, counts in by_path.items()
+                 if name in counts}
+        if paths:
+            entry["launches_by_path"] = paths
         for key in ("library_device_ms", "contiguous_ms",
                     "contiguous_device_ms", "contiguous_library_ms",
                     "contiguous_library_device_ms",
@@ -1474,7 +1692,7 @@ def main() -> int:
                     "f32_bank", "bf16_bank", "layer_group", "B_bank",
                     "V_bank",
                     "ms_int4", "device_ms_int4", "launch_overhead_ms",
-                    "shape"):
+                    "shape", "pixtral_12b"):
             if key in r:
                 entry[key] = r[key]
         kernels.append(entry)

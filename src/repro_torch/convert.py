@@ -6,9 +6,10 @@ bundles from ``launch/serve.py`` or ``core/collection.py``) become nested
 dicts of numpy arrays with ``np.asarray(leaf)``; :func:`to_torch` turns
 such a tree into tensors on one device with the same layouts, bit for bit.
 The compression containers (a ``LoRABank``, a ``JDResult`` or
-``ClusteredJD``, a ``ServingAdapterBundle``) cross the same way, field by
-field, into the port's types of ``core/``: the functions below read the
-fields with ``np.asarray`` and import nothing of the JAX package.
+``ClusteredJD``, a ``ServingAdapterBundle``) and an SSM layer's
+``SSMCache`` cross the same way, field by field, into the port's types:
+the functions below read the fields with ``np.asarray`` and import
+nothing of the JAX package.
 
 bf16 arrives as ``ml_dtypes.bfloat16``, which ``torch.from_numpy``
 refuses; it crosses as its raw 16 bits (``view(np.int16)``) and is
@@ -24,6 +25,7 @@ import torch
 from .core.cluster import ClusteredJD
 from .core.collection import LoRABank, ServingAdapterBundle
 from .core.jd import JDResult
+from .models.ssm import SSMCache
 
 
 def array_to_tensor(a, device="cpu") -> torch.Tensor:
@@ -38,8 +40,10 @@ def array_to_tensor(a, device="cpu") -> torch.Tensor:
 
 def to_torch(tree, device="cpu"):
     """Nested dict of arrays -> the same dict of tensors on ``device``: a
-    parameter or adapter tree, or an optimizer state (``{"master", "mu",
-    "nu": tree, "count": 0-d int32}``)."""
+    parameter or adapter tree of any family (the hybrid family's nests
+    (groups, period) stacks), a decode cache (its 0-d ``index`` as a 0-d
+    tensor, which the model reads with ``int``), or an optimizer state
+    (``{"master", "mu", "nu": tree, "count": 0-d int32}``)."""
     if isinstance(tree, dict):
         return {k: to_torch(v, device) for k, v in tree.items()}
     return array_to_tensor(tree, device)
@@ -60,6 +64,14 @@ def tensor_to_array(t: torch.Tensor) -> np.ndarray:
     if t.dtype == torch.bfloat16:
         t = t.float()
     return t.numpy()
+
+
+def ssm_cache(cache, device="cpu") -> SSMCache:
+    """An ``SSMCache`` (fields ``conv``, ``state``, ``index``) -> the
+    port's, its index as a Python int."""
+    return SSMCache(conv=array_to_tensor(cache.conv, device),
+                    state=array_to_tensor(cache.state, device),
+                    index=int(np.asarray(cache.index)))
 
 
 def lora_bank(bank, device="cpu") -> LoRABank:

@@ -14,3 +14,10 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def synchronize(dev: torch.device) -> None:
+    """Wait for the card's queued work (a no-op on the CPU), so that a host
+    clock read after it covers that work."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)

@@ -35,7 +35,7 @@ import torch
 from ..configs import get_config, smoke_config
 from ..core.collection import (CompressionConfig, LoRABank, compress_bank,
                                export_for_serving, export_uncompressed)
-from ..device import resolve_device
+from ..device import resolve_device, synchronize
 from ..kernels import checks, ops
 
 FAMILIES = 8             # random family centres the adapters are drawn around
@@ -107,11 +107,6 @@ def time_ms(fn, device, iters: int) -> float:
     return 1e3 * (time.perf_counter() - t0) / iters
 
 
-def _sync(device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def resident_bytes(bundle) -> Dict[str, int]:
     """Bytes as the bundle's tensors hold them: shared (U, V) and per
     adapter (A + B, or Sigma + the cluster index)."""
@@ -156,10 +151,10 @@ def run(cfg, n_adapters: int = 1000, seqs: int = 32, seq_len: int = 128,
             seed=SEED),
         "jd_diag": CompressionConfig(method="jd_diag", rank=rank, seed=SEED)}
     for name, ccfg in configs.items():
-        _sync(dev)
+        synchronize(dev)
         t0 = time.perf_counter()
         cm = compress_bank(bank, ccfg)
-        _sync(dev)
+        synchronize(dev)
         modes[name] = {"compress_s": time.perf_counter() - t0,
                        "loss": cm.metrics["loss"],
                        "mean_rel_err": cm.metrics["mean_rel_err"],

@@ -59,7 +59,7 @@ from ..configs import get_config
 from ..core import cluster as cl
 from ..core.collection import (CompressedModule, CompressionConfig, LoRABank,
                                compress_bank, export_for_serving)
-from ..device import resolve_device
+from ..device import resolve_device, synchronize
 from ..kernels import checks, ops
 from ..serving import lifecycle as lcm
 from ..serving.engine import ServingHardware
@@ -80,11 +80,6 @@ TILE = 128
 POOL = 32                    # family members drawn for hot registrations
 MAX_REGRESSION, ABS_SLACK = 0.05, 1e-3
 SEED = 0
-
-
-def _sync(dev):
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
 
 
 def _timed_ms(fn, dev):
@@ -147,10 +142,10 @@ class GroundedChurn:
 
         base = LoRABank(A=pool.A[:n_base], B=pool.B[:n_base],
                         ranks=pool.ranks[:n_base])
-        _sync(device)
+        synchronize(device)
         t0 = time.perf_counter()
         cm = compress_bank(base, self.ccfg)
-        _sync(device)
+        synchronize(device)
         self.base_solve_s = time.perf_counter() - t0
         self.serving: cl.ClusteredJD = cm.result
         self.members: List[int] = list(range(n_base))
@@ -291,10 +286,10 @@ class GroundedChurn:
                   "clusters": [{"U0": self.serving.U[c],
                                 "V0": self.serving.V[c]}
                                for c in range(len(centres))]}
-        _sync(self.dev)
+        synchronize(self.dev)
         t0 = time.perf_counter()
         cm = compress_bank(self._bank(order), self.ccfg, starts=starts)
-        _sync(self.dev)
+        synchronize(self.dev)
         return _Pending(ro, cm.result, order, len(members), False,
                         time.perf_counter() - t0)
 
@@ -329,7 +324,7 @@ class GroundedChurn:
                                  a["cluster_of"], ids, tile=TILE)
         agree = checks.chain_agreement(y, checks.jd_chain_plain(
             x, a["U"], a["V"], a["sigma"], a["cluster_of"], ids))
-        _sync(self.dev)
+        synchronize(self.dev)
         res = lcm.GateResult(ok=g["ok"], rel_err=g["new_worst_rel_err"],
                              agreement=agree["agreement"],
                              reason="planted" if p.planted else "")
@@ -391,7 +386,7 @@ def run(width: int = 4096, rank: int = 16, jd_rank: Optional[int] = None,
     report = run_study(fleet, reqs, lifecycle=lc, events=events,
                        window=0.25)
     g.settle()
-    _sync(dev)
+    synchronize(dev)
     stats = lc.stats.to_dict()
     cfg = lc.cfg
     failed = [x for x in g.gates

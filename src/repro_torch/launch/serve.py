@@ -14,6 +14,11 @@ paper's throughput study on the cost model.
   # reduced model on the CPU
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mistral-7b \\
       --smoke --device cpu --adapters 8 --requests 24
+
+  # the other families: MoE, SSM and vlm (deepseek-moe-16b, zamba2-2.7b and
+  # whisper-small are refused, as the JAX launcher cannot serve them)
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch granite-moe-3b-a800m --smoke --device cpu --mode lora
 """
 from __future__ import annotations
 
@@ -33,6 +38,31 @@ from ..serving.workload import WorkloadSpec, make_workload
 # per-target offsets of the bundle generator's seed: fixed, where the JAX
 # launcher's hash(tname) % 97 changes from process to process
 TARGET_SEED = {"q": 1, "k": 2, "v": 3, "o": 4}
+
+
+def check_servable(cfg) -> None:
+    """Refuse, with the reason, the models that the JAX launcher's
+    ``run_real`` cannot serve (ROADMAP queue 3): its q/k/v bundles are
+    stacked flat over all ``num_layers``, and its executor prefills tokens
+    only.  The port serves what the reference serves and no more."""
+    if cfg.family == "moe" and cfg.moe.first_k_dense:
+        raise ValueError(
+            f"{cfg.name}: run_real's bundles are stacked over all "
+            f"{cfg.num_layers} layers, but a first-k-dense MoE model takes "
+            f"adapters as 'dense_layers' ({cfg.moe.first_k_dense}) and "
+            f"'layers' ({cfg.num_layers - cfg.moe.first_k_dense}); the JAX "
+            f"launcher fails on these bundles")
+    if cfg.family == "hybrid":
+        raise ValueError(
+            f"{cfg.name}: run_real's bundles are stacked flat over "
+            f"{cfg.num_layers} layers, but the hybrid family takes "
+            f"(groups, period) SSM adapters and one 'shared' attention "
+            f"block's; the JAX launcher fails on these bundles")
+    if cfg.family == "audio":
+        raise ValueError(
+            f"{cfg.name}: the executor prefills tokens only, and the audio "
+            f"family's prefill needs frames for its encoder; the JAX "
+            f"launcher fails without them")
 
 
 def make_bundles(cfg, n_adapters: int, mode: str, decode_path: str, seed: int,
@@ -82,11 +112,14 @@ def build_executor(cfg, n_adapters: int, mode: str, max_batch: int,
                    seed: int, decode_path: str, device=None,
                    targets: Optional[Sequence[str]] = None):
     """The executor ``run_real`` serves with: random weights and adapters
-    from seeded generators, a 160-token cache per slot."""
+    from seeded generators, a 160-token cache per slot.  The adapters ride
+    on q/k/v (and o) whatever the family, as the JAX launcher's do: an SSM
+    layer has no such projection, so on mamba2 they are inert."""
     from ..models import transformer as tf
     from ..models.param import init_params
     from ..serving.real_executor import RealModelExecutor
 
+    check_servable(cfg)
     dev = resolve_device(device)
     gen_dev = dev if dev.type == "cuda" else torch.device("cpu")
     g = torch.Generator(device=gen_dev)

@@ -1,6 +1,7 @@
 """Dense transformer building blocks (the port of ``models/layers.py``):
-norms, RoPE, GQA attention for training, prefill and decode, SwiGLU MLP,
-embeddings, logits and the memory-safe cross-entropy.
+norms, RoPE, GQA attention for training, prefill and decode, encoder-decoder
+cross attention, SwiGLU MLP, embeddings, logits and the memory-safe
+cross-entropy.
 
 Plain functions on tensors; parameters are nested dicts of tensors in the
 JAX package's layouts (``wq (d, H, hd)``, ``wo (H, hd, d)``, ...).  The
@@ -266,6 +267,23 @@ def attention_fwd(p: Dict, x: torch.Tensor, cfg, *,
     if lora_ctx is not None:
         y = lora_mod.apply(lora_ctx, "o", out.reshape(B, S, -1), y)
     return y, new_cache
+
+
+def cross_attention_fwd(p: Dict, x: torch.Tensor, memory: torch.Tensor, cfg,
+                        lora_ctx=None) -> torch.Tensor:
+    """Encoder-decoder cross attention (no rope, no causal mask)."""
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    k = torch.einsum("bsd,dhk->bshk", memory, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", memory, p["wv"])
+    if lora_ctx is not None:
+        q = lora_mod.apply(lora_ctx, "xq", x, q)
+        k = lora_mod.apply(lora_ctx, "xk", memory, k)
+        v = lora_mod.apply(lora_ctx, "xv", memory, v)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    out = naive_attention(q, k, v, causal=False)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
 
 
 # ---------------------------------------------------------------------------

@@ -12,6 +12,9 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+# the most elements drawn in one piece by init_params (2^28: 1 GiB of f32)
+DRAW_PIECE = 1 << 28
+
 
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
@@ -51,7 +54,10 @@ def init_params(defs, generator: torch.Generator, device,
     ``0.02 * (scale or 1)``.  Draws are f32 normals from ``generator`` in
     sorted-key leaf order, made on the generator's own device (a CUDA
     generator keeps a 7B-parameter draw off the host), then cast and
-    moved to ``device``."""
+    moved to ``device``.  A leaf is drawn in pieces of at most
+    ``DRAW_PIECE`` elements (in memory order; a smaller leaf is one draw),
+    so that a full-width expert bank needs no f32 copy of itself and every
+    index stays under 2^31."""
     def one(d: ParamDef):
         dt = dtype_override or d.dtype
         if d.init == "zeros":
@@ -62,9 +68,14 @@ def init_params(defs, generator: torch.Generator, device,
         std = d.scale if d.scale is not None else 1.0 / math.sqrt(fan_in)
         if d.init == "small":
             std = (d.scale or 1.0) * 0.02
-        x = torch.randn(d.shape, generator=generator, dtype=torch.float32,
-                        device=generator.device)
-        return (x * std).to(dtype=dt, device=device)
+        out = torch.empty(d.shape, dtype=dt, device=device)
+        flat = out.view(-1)
+        for i in range(0, flat.numel(), DRAW_PIECE):
+            n = min(DRAW_PIECE, flat.numel() - i)
+            x = torch.randn(n, generator=generator, dtype=torch.float32,
+                            device=generator.device)
+            flat[i:i + n] = (x * std).to(dtype=dt, device=device)
+        return out
 
     out: Dict[str, Any] = {}
 
@@ -81,8 +92,9 @@ def init_params(defs, generator: torch.Generator, device,
     return out
 
 
-def stacked(defs: Dict, n: int, axis_name: str = "layers"):
-    """Add a leading stacking dim (one slice per layer) to every leaf."""
+def stacked(defs: Dict, n: int, axis_name: Optional[str] = "layers"):
+    """Add a leading stacking dim (one slice per layer) to every leaf; the
+    hybrid family nests two (groups, then layers of a group, named None)."""
     return tree_map(
         lambda d: dataclasses.replace(d, shape=(n,) + d.shape,
                                       axes=(axis_name,) + d.axes), defs)

@@ -1,28 +1,49 @@
-"""Model assembly for the dense family (the port of the ``dense``/``vlm``
-branches of ``models/transformer.py``).
+"""Model assembly for every architecture family (the port of
+``models/transformer.py``): dense, vlm, moe, ssm, hybrid and audio.
 
 ``model_defs(cfg)`` builds the ParamDef tree; ``forward`` runs it in
 train, prefill or decode mode with an optional LoRA context, and
 ``lm_loss`` is the training objective.  Layers run as a Python loop over
-the stacked (leading layer axis) parameters; in train mode each layer is
-recomputed in the backward pass when ``cfg.remat`` is set.  The cache is
-``{"k", "v": (L, B, S_max, Kv, hd), "index": int}``: the index is one
-scalar shared by all slots, kept as a Python int so that no step has to
-read it back from the device.
+the stacked (leading layer axis) parameters, one step where the JAX
+module scans one: a layer, or for the hybrid family a group of ``period``
+SSM layers followed by the weight-shared attention block.  In train mode
+each step is recomputed in the backward pass when ``cfg.remat`` is set,
+and its input passes the bf16 gradient boundary when
+``cfg.grad_cast_bf16`` is set, as the JAX scan's carry does.
+
+Caches are dicts of stacked tensors plus ``"index"``, one scalar shared
+by all slots, kept as a Python int so that no step has to read it back
+from the device:
+
+- dense, vlm, moe: ``k``, ``v`` (L, B, S_max, Kv, hd);
+- ssm: ``conv`` (L, B, d_conv-1, W) and ``state`` (L, B, H, N, P) f32;
+- hybrid: ``conv``/``state`` (groups, period, B, ...) and ``k``/``v``
+  (groups, B, S_max, Kv, hd), one KV slice per use of the shared block;
+- audio: ``k``/``v`` and the encoder memory's ``cross_k``/``cross_v``
+  (L, B, enc_len, Kv, hd), which prefill fills.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
-
-from . import lora as lora_mod
 from torch.utils.checkpoint import checkpoint
 
-from .layers import (attention_defs, attention_fwd, cross_entropy,
-                     embed_tokens, embedding_defs, logits_fwd, mlp_defs,
-                     mlp_fwd, rms_norm)
+from . import lora as lora_mod
+from .layers import (attention_defs, attention_fwd, cross_attention_fwd,
+                     cross_entropy, embed_tokens, embedding_defs, logits_fwd,
+                     mlp_defs, mlp_fwd, naive_attention, rms_norm)
+from .moe import moe_defs, moe_fwd
 from .param import ParamDef, stacked, tree_map
+from .ssm import SSMCache, conv_width, ssm_block_fwd, ssm_defs
+
+FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "audio")
+
+
+# ---------------------------------------------------------------------------
+# parameter trees
+# ---------------------------------------------------------------------------
 
 
 def _norm_def(d: int) -> ParamDef:
@@ -35,33 +56,122 @@ def _attn_block_defs(cfg) -> Dict:
             "mlp": mlp_defs(cfg.d_model, cfg.d_ff)}
 
 
+def _moe_block_defs(cfg) -> Dict:
+    return {"ln1": _norm_def(cfg.d_model), "attn": attention_defs(cfg),
+            "ln2": _norm_def(cfg.d_model), "moe": moe_defs(cfg)}
+
+
+def _ssm_block_defs(cfg) -> Dict:
+    return {"ln1": _norm_def(cfg.d_model), "ssm": ssm_defs(cfg)}
+
+
+def _decoder_block_defs(cfg) -> Dict:
+    return {"ln1": _norm_def(cfg.d_model), "attn": attention_defs(cfg),
+            "lnx": _norm_def(cfg.d_model), "xattn": attention_defs(cfg),
+            "ln2": _norm_def(cfg.d_model),
+            "mlp": mlp_defs(cfg.d_model, cfg.d_ff)}
+
+
 def _check_family(cfg) -> None:
-    if cfg.family not in ("dense", "vlm"):
-        raise NotImplementedError(
-            f"the port runs the dense family only, not {cfg.family!r}")
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"unknown model family {cfg.family!r}")
+
+
+def _dense_cfg(cfg):
+    """The first-k-dense layers' config: their MLP is ``d_ff_dense`` wide."""
+    return dataclasses.replace(cfg, d_ff=cfg.moe.d_ff_dense)
+
+
+def _groups(cfg) -> int:
+    return cfg.num_layers // cfg.hybrid.period
 
 
 def model_defs(cfg) -> Dict:
     _check_family(cfg)
-    return {"embed": embedding_defs(cfg),
-            "layers": stacked(_attn_block_defs(cfg), cfg.num_layers)}
+    defs: Dict[str, Any] = {"embed": embedding_defs(cfg)}
+    L = cfg.num_layers
+    if cfg.family == "moe":
+        fk = cfg.moe.first_k_dense
+        if fk:
+            defs["dense_layers"] = stacked(_attn_block_defs(_dense_cfg(cfg)),
+                                           fk)
+        defs["layers"] = stacked(_moe_block_defs(cfg), L - fk)
+    elif cfg.family == "ssm":
+        defs["layers"] = stacked(_ssm_block_defs(cfg), L)
+    elif cfg.family == "hybrid":
+        defs["layers"] = stacked(stacked(_ssm_block_defs(cfg),
+                                         cfg.hybrid.period, None),
+                                 _groups(cfg))
+        defs["shared"] = _attn_block_defs(cfg)
+    elif cfg.family == "audio":
+        defs["enc_layers"] = stacked(_attn_block_defs(cfg),
+                                     cfg.encdec.encoder_layers)
+        defs["enc_norm"] = _norm_def(cfg.d_model)
+        defs["layers"] = stacked(_decoder_block_defs(cfg), L)
+    else:  # dense / vlm
+        defs["layers"] = stacked(_attn_block_defs(cfg), L)
+    return defs
 
 
 def lora_defs_tree(cfg) -> Dict:
     """LoRA adapter ParamDefs mirroring the layer structure."""
     _check_family(cfg)
-    per = lora_mod.lora_layer_defs(cfg, cfg.lora.targets)
+    targets = cfg.lora.targets
+    if cfg.family == "hybrid":
+        ssm_targets = tuple(t for t in targets if t.startswith("ssm"))
+        attn_targets = tuple(t for t in targets if not t.startswith("ssm"))
+        out = {}
+        if ssm_targets:
+            out["layers"] = stacked(
+                stacked(lora_mod.lora_layer_defs(cfg, ssm_targets),
+                        cfg.hybrid.period, None), _groups(cfg))
+        if attn_targets:
+            out["shared"] = lora_mod.lora_layer_defs(cfg, attn_targets)
+        return out
+    per = lora_mod.lora_layer_defs(cfg, targets)
+    if cfg.family == "audio":
+        return {"enc_layers": stacked(per, cfg.encdec.encoder_layers),
+                "layers": stacked(per, cfg.num_layers)}
+    if cfg.family == "moe":
+        fk = cfg.moe.first_k_dense
+        out = {"layers": stacked(per, cfg.num_layers - fk)}
+        if fk:
+            out["dense_layers"] = stacked(per, fk)
+        return out
     return {"layers": stacked(per, cfg.num_layers)}
 
 
-def init_cache(cfg, batch: int, s_max: int, *, device,
+# ---------------------------------------------------------------------------
+# caches
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg, batch: int, s_max: int, *, device, enc_len: int = 0,
                dtype=torch.bfloat16) -> Dict[str, Any]:
+    """The family's decode cache, stacked over layers (see the module
+    docstring); SSM states are f32 whatever ``dtype``."""
     _check_family(cfg)
-    shape = (cfg.num_layers, batch, s_max, cfg.num_kv_heads,
-             cfg.resolved_head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device),
-            "index": 0}
+
+    def zeros(*shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    hd, Kv, L = cfg.resolved_head_dim, cfg.num_kv_heads, cfg.num_layers
+    cache: Dict[str, Any] = {"index": 0}
+    if cfg.family in ("ssm", "hybrid"):
+        s = cfg.ssm
+        lead = (L,) if cfg.family == "ssm" else (_groups(cfg),
+                                                 cfg.hybrid.period)
+        cache["conv"] = zeros(*lead, batch, s.d_conv - 1, conv_width(cfg))
+        cache["state"] = zeros(*lead, batch, s.n_heads(cfg.d_model),
+                               s.d_state, s.head_dim, dt=torch.float32)
+    if cfg.family != "ssm":
+        n_kv = _groups(cfg) if cfg.family == "hybrid" else L
+        cache["k"] = zeros(n_kv, batch, s_max, Kv, hd)
+        cache["v"] = zeros(n_kv, batch, s_max, Kv, hd)
+    if cfg.family == "audio":
+        cache["cross_k"] = zeros(L, batch, enc_len, Kv, hd)
+        cache["cross_v"] = zeros(L, batch, enc_len, Kv, hd)
+    return cache
 
 
 def layer_params(tree, li: int):
@@ -69,13 +179,39 @@ def layer_params(tree, li: int):
     return tree_map(lambda a: a[li], tree)
 
 
-def _dense_block(p, x, cfg, *, positions, mode, kv, lora_ctx):
+# ---------------------------------------------------------------------------
+# blocks (one layer)
+# ---------------------------------------------------------------------------
+
+
+def _dense_block(p, x, cfg, *, positions, mode, kv, lora_ctx, causal=True):
+    h, new_kv = attention_fwd(p["attn"], rms_norm(x, p["ln1"], cfg.norm_eps),
+                              cfg, positions=positions, mode=mode, cache=kv,
+                              lora_ctx=lora_ctx, causal=causal)
+    x = x + h
+    x = x + mlp_fwd(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps))
+    return x, new_kv
+
+
+def _moe_block(p, x, cfg, *, positions, mode, kv, lora_ctx):
     h, new_kv = attention_fwd(p["attn"], rms_norm(x, p["ln1"], cfg.norm_eps),
                               cfg, positions=positions, mode=mode, cache=kv,
                               lora_ctx=lora_ctx)
     x = x + h
-    x = x + mlp_fwd(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps))
-    return x, new_kv
+    y, aux = moe_fwd(p["moe"], rms_norm(x, p["ln2"], cfg.norm_eps), cfg)
+    return x + y, new_kv, aux
+
+
+def _ssm_block(p, x, cfg, *, mode, cache, lora_ctx):
+    h, new_cache = ssm_block_fwd(p["ssm"], rms_norm(x, p["ln1"], cfg.norm_eps),
+                                 cfg, mode=mode, cache=cache,
+                                 lora_ctx=lora_ctx)
+    return x + h, new_cache
+
+
+# ---------------------------------------------------------------------------
+# one scanned step: remat and the bf16 gradient boundary
+# ---------------------------------------------------------------------------
 
 
 class _BF16GradBoundary(torch.autograd.Function):
@@ -98,87 +234,264 @@ def _bf16_grad_boundary(x: torch.Tensor) -> torch.Tensor:
 
 
 def _maybe_remat(fn, cfg, mode: str):
-    """``fn(x) -> (x, kv)`` recomputed in the backward pass (activation
+    """``fn(x) -> outputs`` recomputed in the backward pass (activation
     checkpointing) when ``cfg.remat`` is set in train mode."""
     if cfg.remat and mode == "train":
         return lambda x: checkpoint(fn, x, use_reentrant=False)
     return fn
 
 
-def forward(params: Dict, cfg, *, tokens: torch.Tensor, mode: str,
+def _step(fn, x, cfg, mode: str):
+    """One scanned step ``fn(x)``: its input through the bf16 gradient
+    boundary (when ``cfg.grad_cast_bf16`` is set), then ``fn`` under
+    remat.  A step may record the cache leaves it makes: remat runs only
+    in train mode, which makes none."""
+    if cfg.grad_cast_bf16:
+        x = _bf16_grad_boundary(x)
+    return _maybe_remat(fn, cfg, mode)(x)
+
+
+def _layer_ctx(proto, lora_stack, *idx):
+    """The LoRA context of one layer (``idx`` indexes the stacked banks),
+    or None without adapters there."""
+    if lora_stack is None or proto is None:
+        return None
+    for i in idx:
+        lora_stack = layer_params(lora_stack, i)
+    return lora_mod.layer_slice(proto, lora_stack)
+
+
+def _kv(cache, mode, li, index):
+    if mode == "train":
+        return None
+    return {"k": cache["k"][li], "v": cache["v"][li], "index": index}
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+
+def forward(params: Dict, cfg, *, tokens: Optional[torch.Tensor] = None,
+            patches: Optional[torch.Tensor] = None,
+            frames: Optional[torch.Tensor] = None, mode: str,
             cache: Optional[Dict] = None,
             lora_params: Optional[Dict] = None,
             lora_ctx_proto: Optional[lora_mod.LoRAContext] = None
-            ) -> Tuple[torch.Tensor, Optional[Dict]]:
+            ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
     """Run the model in ``train``, ``prefill`` or ``decode`` mode.  Returns
-    (hidden (B, S, d), new_cache); ``cache`` is not mutated, and train
-    mode takes none and returns None.  The dense family has no auxiliary
-    loss, so the JAX module's third output is dropped.
+    (hidden (B, S, d), new_cache, aux_loss); ``cache`` is not mutated,
+    and train mode takes none and returns None.  ``aux_loss`` is the MoE
+    layers' mean load-balancing loss, 0 for the other families.
 
-    ``lora_params`` mirrors the layer structure (``{"layers": {target:
-    stacked banks}}``); ``lora_ctx_proto`` carries mode/ids/scaling.  When
-    ``cfg.grad_cast_bf16`` is set, each layer's input passes the bf16
-    gradient boundary, as the JAX scan's carry does."""
+    ``patches`` (vlm: (B, P, d) embeddings put before the tokens) and
+    ``frames`` (audio: (B, F, d) encoder input) are the stub front ends'
+    outputs.  ``lora_params`` mirrors the layer structure (see
+    :func:`lora_defs_tree`); ``lora_ctx_proto`` carries mode/ids/scaling."""
     _check_family(cfg)
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(mode)
+    if mode != "train" and cache is None:
+        raise ValueError(f"{mode} needs a cache")
+    lp = lora_params or {}
+    if cfg.family == "audio":
+        return _forward_audio(params, cfg, tokens=tokens, frames=frames,
+                              mode=mode, cache=cache, lp=lp,
+                              proto=lora_ctx_proto)
+
     x = embed_tokens(params["embed"], tokens)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family == "vlm" and patches is not None:
+        x = torch.cat([patches.to(x.dtype), x], dim=1)
     S = x.shape[1]
     index = 0 if mode == "train" else int(cache["index"])
     positions = index + torch.arange(S, dtype=torch.int32, device=x.device)
-    lora_stack = (lora_params or {}).get("layers")
-    ks, vs = [], []
-    for li in range(cfg.num_layers):
-        p_l = layer_params(params["layers"], li)
-        ctx = None
-        if lora_stack is not None and lora_ctx_proto is not None:
-            ctx = lora_mod.layer_slice(lora_ctx_proto,
-                                       layer_params(lora_stack, li))
-        kv = None if mode == "train" else {
-            "k": cache["k"][li], "v": cache["v"][li], "index": index}
+    new = {}
 
-        def block(x, p_l=p_l, kv=kv, ctx=ctx):
-            return _dense_block(p_l, x, cfg, positions=positions, mode=mode,
-                                kv=kv, lora_ctx=ctx)
+    def attn_layers(x, p_stack, lora_stack, block_cfg, first, block):
+        """Attention layers ``first``, ``first + 1``, ... of the cache;
+        ``block`` is _dense_block or _moe_block (which adds its aux)."""
+        aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+        n = p_stack["ln1"].shape[0]
+        for i in range(n):
+            kv = _kv(cache, mode, first + i, index)
+            ctx = _layer_ctx(lora_ctx_proto, lora_stack, i)
+            x, new_kv, *aux_l = _step(lambda x, i=i, kv=kv, ctx=ctx: block(
+                layer_params(p_stack, i), x, block_cfg, positions=positions,
+                mode=mode, kv=kv, lora_ctx=ctx), x, cfg, mode)
+            if aux_l:
+                aux_sum = aux_sum + aux_l[0]
+            if new_kv is not None:
+                new.setdefault("k", []).append(new_kv["k"])
+                new.setdefault("v", []).append(new_kv["v"])
+        return x, aux_sum
 
-        if cfg.grad_cast_bf16:
-            x = _bf16_grad_boundary(x)
-        x, new_kv = _maybe_remat(block, cfg, mode)(x)
-        if new_kv is not None:
-            ks.append(new_kv["k"])
-            vs.append(new_kv["v"])
+    def ssm_layer(x, p_l, c_idx, ctx):
+        c = None if mode == "train" else SSMCache(
+            conv=cache["conv"][c_idx], state=cache["state"][c_idx],
+            index=index)
+        x, new_c = _ssm_block(p_l, x, cfg, mode=mode, cache=c, lora_ctx=ctx)
+        if new_c is not None:
+            new.setdefault("conv", []).append(new_c.conv)
+            new.setdefault("state", []).append(new_c.state)
+        return x
+
+    if cfg.family in ("dense", "vlm"):
+        x, _ = attn_layers(x, params["layers"], lp.get("layers"), cfg, 0,
+                           _dense_block)
+    elif cfg.family == "moe":
+        fk = cfg.moe.first_k_dense
+        if fk:
+            x, _ = attn_layers(x, params["dense_layers"],
+                               lp.get("dense_layers"), _dense_cfg(cfg), 0,
+                               _dense_block)
+        x, aux_acc = attn_layers(x, params["layers"], lp.get("layers"), cfg,
+                                 fk, _moe_block)
+        aux = aux + aux_acc / max(cfg.num_layers - fk, 1)
+    elif cfg.family == "ssm":
+        for li in range(cfg.num_layers):
+            ctx = _layer_ctx(lora_ctx_proto, lp.get("layers"), li)
+            x = _step(lambda x, li=li, ctx=ctx: ssm_layer(
+                x, layer_params(params["layers"], li), li, ctx), x, cfg, mode)
+    else:  # hybrid: period SSM layers, then the shared attention block
+        shared_ctx = _layer_ctx(lora_ctx_proto, lp.get("shared"))
+
+        def group(x, g):
+            for i in range(cfg.hybrid.period):
+                x = ssm_layer(x, layer_params(layer_params(
+                    params["layers"], g), i), (g, i),
+                    _layer_ctx(lora_ctx_proto, lp.get("layers"), g, i))
+            x, new_kv = _dense_block(params["shared"], x, cfg,
+                                     positions=positions, mode=mode,
+                                     kv=_kv(cache, mode, g, index),
+                                     lora_ctx=shared_ctx)
+            if new_kv is not None:
+                new.setdefault("k", []).append(new_kv["k"])
+                new.setdefault("v", []).append(new_kv["v"])
+            return x
+
+        for g in range(_groups(cfg)):
+            x = _step(lambda x, g=g: group(x, g), x, cfg, mode)
+
     if mode == "train":
-        return x, None
+        return x, None, aux
     new_cache = dict(cache)
-    new_cache.update(k=torch.stack(ks), v=torch.stack(vs), index=index + S)
-    return x, new_cache
+    for key, leaves in new.items():
+        if cfg.family == "hybrid" and key in ("conv", "state"):
+            # (groups * period) layers back to (groups, period, ...)
+            stackd = torch.stack(leaves)
+            new_cache[key] = stackd.reshape(
+                (_groups(cfg), cfg.hybrid.period) + stackd.shape[1:])
+        else:
+            new_cache[key] = torch.stack(leaves)
+    new_cache["index"] = index + S
+    return x, new_cache, aux
+
+
+def _forward_audio(params, cfg, *, tokens, frames, mode, cache, lp, proto):
+    """whisper-style: encoder over frames, decoder over tokens with cross
+    attention.  Decode attends over the cached ``cross_k``/``cross_v``
+    (without the adapters' cross deltas, as in the JAX module); prefill
+    fills them from the encoder memory."""
+    index = 0 if mode == "train" else int(cache["index"])
+    memory = None
+    if frames is not None:
+        h = frames
+        pos_e = torch.arange(h.shape[1], dtype=torch.int32, device=h.device)
+        for i in range(cfg.encdec.encoder_layers):
+            ctx = _layer_ctx(proto, lp.get("enc_layers"), i)
+            h = _step(lambda h, i=i, ctx=ctx: _dense_block(
+                layer_params(params["enc_layers"], i), h, cfg,
+                positions=pos_e, mode="train", kv=None, lora_ctx=ctx,
+                causal=False)[0], h, cfg, mode)
+        memory = rms_norm(h, params["enc_norm"], cfg.norm_eps)
+    elif mode != "decode":
+        raise ValueError(f"the audio family's {mode} mode needs frames, the "
+                         f"encoder's input")
+
+    x = embed_tokens(params["embed"], tokens)
+    S = x.shape[1]
+    positions = index + torch.arange(S, dtype=torch.int32, device=x.device)
+    new = {}
+
+    def dec_layer(x, li, ctx):
+        p_l = layer_params(params["layers"], li)
+        h, new_kv = attention_fwd(p_l["attn"],
+                                  rms_norm(x, p_l["ln1"], cfg.norm_eps), cfg,
+                                  positions=positions, mode=mode,
+                                  cache=_kv(cache, mode, li, index),
+                                  lora_ctx=ctx)
+        x = x + h
+        xin = rms_norm(x, p_l["lnx"], cfg.norm_eps)
+        if mode == "decode":
+            q = torch.einsum("bsd,dhk->bshk", xin, p_l["xattn"]["wq"])
+            o = naive_attention(q, cache["cross_k"][li],
+                                cache["cross_v"][li], causal=False)
+            h2 = torch.einsum("bshk,hkd->bsd", o, p_l["xattn"]["wo"])
+        else:
+            h2 = cross_attention_fwd(p_l["xattn"], xin, memory, cfg,
+                                     lora_ctx=ctx)
+            if mode == "prefill":
+                new.setdefault("cross_k", []).append(torch.einsum(
+                    "bsd,dhk->bshk", memory, p_l["xattn"]["wk"]))
+                new.setdefault("cross_v", []).append(torch.einsum(
+                    "bsd,dhk->bshk", memory, p_l["xattn"]["wv"]))
+        x = x + h2
+        x = x + mlp_fwd(p_l["mlp"], rms_norm(x, p_l["ln2"], cfg.norm_eps))
+        if new_kv is not None:
+            new.setdefault("k", []).append(new_kv["k"])
+            new.setdefault("v", []).append(new_kv["v"])
+        return x
+
+    for li in range(cfg.num_layers):
+        ctx = _layer_ctx(proto, lp.get("layers"), li)
+        x = _step(lambda x, li=li, ctx=ctx: dec_layer(x, li, ctx), x, cfg,
+                  mode)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if mode == "train":
+        return x, None, aux
+    new_cache = dict(cache)
+    new_cache.update({k: torch.stack(v) for k, v in new.items()})
+    new_cache["index"] = index + S
+    return x, new_cache, aux
+
+
+# ---------------------------------------------------------------------------
+# public steps
+# ---------------------------------------------------------------------------
 
 
 def lm_loss(params: Dict, batch: Dict, cfg,
             lora_params: Optional[Dict] = None,
-            lora_ctx_proto=None) -> torch.Tensor:
+            lora_ctx_proto=None, aux_weight: float = 0.01) -> torch.Tensor:
     """Token-mean next-token CE of ``batch`` (``tokens``, ``targets`` with
-    -1 where no loss is taken, optional ``loss_mask``)."""
-    if batch.get("patches") is not None or batch.get("frames") is not None:
-        raise NotImplementedError("the port trains on token batches only")
-    h, _ = forward(params, cfg, tokens=batch["tokens"], mode="train",
-                   lora_params=lora_params, lora_ctx_proto=lora_ctx_proto)
-    return cross_entropy(params["embed"], h, batch["targets"], cfg,
+    -1 where no loss is taken, optional ``loss_mask``, ``patches`` or
+    ``frames``) plus ``aux_weight`` times the MoE aux loss."""
+    h, _, aux = forward(params, cfg, tokens=batch.get("tokens"),
+                        patches=batch.get("patches"),
+                        frames=batch.get("frames"), mode="train",
+                        lora_params=lora_params,
+                        lora_ctx_proto=lora_ctx_proto)
+    if cfg.family == "vlm" and batch.get("patches") is not None:
+        h = h[:, batch["patches"].shape[1]:]
+    loss = cross_entropy(params["embed"], h, batch["targets"], cfg,
                          mask=batch.get("loss_mask"))
+    return loss + aux_weight * aux
 
 
 def prefill(params: Dict, batch: Dict, cfg, cache: Dict,
             lora_params=None, lora_ctx_proto=None):
-    h, new_cache = forward(params, cfg, tokens=batch["tokens"],
-                           mode="prefill", cache=cache,
-                           lora_params=lora_params,
-                           lora_ctx_proto=lora_ctx_proto)
+    h, new_cache, _ = forward(params, cfg, tokens=batch.get("tokens"),
+                              patches=batch.get("patches"),
+                              frames=batch.get("frames"), mode="prefill",
+                              cache=cache, lora_params=lora_params,
+                              lora_ctx_proto=lora_ctx_proto)
     return logits_fwd(params["embed"], h[:, -1:], cfg), new_cache
 
 
 def decode_step(params: Dict, tokens: torch.Tensor, cfg, cache: Dict,
                 lora_params=None, lora_ctx_proto=None):
-    h, new_cache = forward(params, cfg, tokens=tokens, mode="decode",
-                           cache=cache, lora_params=lora_params,
-                           lora_ctx_proto=lora_ctx_proto)
+    h, new_cache, _ = forward(params, cfg, tokens=tokens, mode="decode",
+                              cache=cache, lora_params=lora_params,
+                              lora_ctx_proto=lora_ctx_proto)
     return logits_fwd(params["embed"], h, cfg), new_cache

@@ -1,6 +1,9 @@
 """Real-model executor (the port of ``serving/real_executor.py``): runs
-prefill/decode of a dense model with batched per-slot adapters on the card
-(or on the CPU when asked), behind the `ServingEngine` executor interface.
+prefill/decode of a model of any family with batched per-slot adapters on
+the card (or on the CPU when asked), behind the `ServingEngine` executor
+interface.  Its prefill takes tokens only (no vlm patches, no audio
+frames), as the JAX executor's does; the fused decode paths serve the
+dense and vlm families.
 
 Slot model: a fixed decode batch of ``max_batch`` KV-cache slots; admitted
 requests prefill into a free slot (batch-1 prefill, cache splice); each
@@ -215,12 +218,19 @@ class RealModelExecutor:
     def shared_bytes(self) -> int:
         return 0
 
+    def _slot_view(self, key: str, slot: int) -> torch.Tensor:
+        """Cache leaf ``key`` at ``slot`` (a view, batch axis kept)."""
+        leaf = self.cache[key]
+        return leaf.narrow(_batch_dim(self.cfg, key), slot, 1)
+
     def _splice(self, kv: Dict, slot: int, index: int) -> None:
-        """Write a one-slot cache into ``slot`` and advance the shared
-        scalar index to the deeper of the two, so decode continues after
-        the prompt instead of overwriting it."""
-        self.cache["k"][:, slot:slot + 1] = kv["k"]
-        self.cache["v"][:, slot:slot + 1] = kv["v"]
+        """Write a one-slot cache (every leaf of the family's cache) into
+        ``slot`` and advance the shared scalar index to the deeper of the
+        two, so decode continues after the prompt instead of overwriting
+        it."""
+        for key in self.cache:
+            if key != "index":
+                self._slot_view(key, slot).copy_(kv[key])
         self.cache["index"] = max(self.cache["index"], int(index))
         self._host_len = max(self._host_len, int(index))
 
@@ -279,9 +289,9 @@ class RealModelExecutor:
         slice, the last sampled token, and the filled depth.  The slot is
         NOT released; the engine frees it via :meth:`release`."""
         slot = self.slot_req.index(rid)
-        kv = {"k": self.cache["k"][:, slot:slot + 1].clone(),
-              "v": self.cache["v"][:, slot:slot + 1].clone(),
-              "index": self.cache["index"]}
+        kv = {key: self._slot_view(key, slot).clone() for key in self.cache
+              if key != "index"}
+        kv["index"] = self.cache["index"]
         return {"kv": kv,
                 "adapter": int(self.slot_adapter[slot]),
                 "token": int(self.slot_tokens[slot]),
@@ -352,6 +362,14 @@ def _dequantize_targets(targets: Dict[str, Dict]) -> Dict[str, Dict]:
     for (t, k), out in zip(jobs, outs):
         res[t][k] = out
     return res
+
+
+def _batch_dim(cfg, key: str) -> int:
+    """The batch axis of cache leaf ``key``: 1 for every leaf (kv, ssm
+    conv and state, cross_k/v) but the hybrid conv (G,P,B,k-1,W) and state
+    (G,P,B,H,N,P), whose batch is on axis 2.  The JAX executor's rule by
+    rank puts the hybrid conv's on axis 1 (ROADMAP queue 3)."""
+    return 2 if cfg.family == "hybrid" and key in ("conv", "state") else 1
 
 
 def derive_cost_constants(samples) -> Dict[str, float]:

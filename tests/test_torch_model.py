@@ -223,8 +223,8 @@ def test_init_params_follows_the_std_rule():
     assert abs(std - 2 ** -0.5) < 0.02, std
     assert abs(p["embed"]["embed"].float().std().item() - 0.02) < 0.002
     assert torch.all(p["layers"]["ln1"] == 1)
-    with pytest.raises(NotImplementedError):
-        ttf.model_defs(tcfg.smoke_config("mamba2-2.7b"))
+    with pytest.raises(ValueError):
+        ttf.model_defs(dc.replace(cfg, family="rnn"))
 
 
 @pytest.mark.parametrize("mode", ["single", "batched", "jd"])
