@@ -13,7 +13,9 @@ Phases (any failure ends the script with a non-zero exit code):
    with int8 banks and JD with a diagonal and a full Sigma; hold each
    against its plain version on the card (tolerances in
    ``repro_torch/kernels/checks.py``), check that the fused kernels'
-   attention output equals flash_decode's bit for bit and that
+   attention output equals flash_decode's bit for bit, that one fused
+   call launches ``attention_launches(S)`` kernels, all ``decode_attn*``
+   (an unfiltered ``torch.profiler`` record: no second stage), and that
    adapter_quantize equals its plain version exactly; time kernel, plain
    version and, for attention, ``scaled_dot_product_attention`` as a
    yardstick, with CUDA events, and the kernels' own device time per call
@@ -30,7 +32,7 @@ Phases (any failure ends the script with a non-zero exit code):
    their device time).  The paged kernels run at the serving shapes too,
    over a pool of 16-token and 128-token pages;
 3. parity: a reduced model (2 layers, d 64, 4 heads over 2 KV heads, so
-   the expand kernel sums partials across heads) in f32, with an f32 KV
+   the fused kernels' cluster sums partials across heads) in f32, with an f32 KV
    cache, decoding through the fused kernels on the card against the
    plain unfused path on the CPU from the same prefilled cache;
 4. serve: ``repro_torch.launch.serve.run_real`` at mistral-7b's full width
@@ -53,7 +55,9 @@ Phases (any failure ends the script with a non-zero exit code):
    against the plain versions, within ``ERROR_BOUND``, at ``WIRE_RATIO``
    on the full blocks and at ``KVCompressionConfig.wire_bytes`` in all.
    The five kernels' counts are zeroed just before and read just after;
-   then each is timed at this path's shapes (the paged kernels beside the
+   one fused paged call must launch two ``decode_attn*`` kernels (the
+   chunks, then the merge with the delta) and nothing else; then each is
+   timed at this path's shapes (the paged kernels beside the
    contiguous kernel on the same lengths, two calls held bit for bit, and
    one ``scaled_dot_product_attention`` call on the contiguous cache as the
    attention kernel's yardstick, with the kernel's share of its bound);
@@ -144,12 +148,10 @@ KERNELS = {
         route="cuda", source="src/repro_torch/kernels/csrc/decode_attention.cu",
         replaces="src/repro/kernels/flash_decode.py:80"),
     "fused_decode_lora": dict(
-        route="cuda", source="src/repro_torch/kernels/csrc/decode_attention.cu"
-        " + src/repro_torch/kernels/csrc/fused_expand.cu",
+        route="cuda", source="src/repro_torch/kernels/csrc/decode_attention.cu",
         replaces="src/repro/kernels/fused_decode.py:178"),
     "fused_decode_jd": dict(
-        route="cuda", source="src/repro_torch/kernels/csrc/decode_attention.cu"
-        " + src/repro_torch/kernels/csrc/fused_expand.cu",
+        route="cuda", source="src/repro_torch/kernels/csrc/decode_attention.cu",
         replaces="src/repro/kernels/fused_decode.py:298"),
     "adapter_quantize": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/adapter_quant.cu",
@@ -175,12 +177,10 @@ KERNELS = {
         route="cuda", source="src/repro_torch/kernels/csrc/decode_attention.cu",
         replaces="src/repro/kernels/flash_decode.py:135"),
     "fused_decode_lora_paged": dict(
-        route="cuda", source="src/repro_torch/kernels/csrc/decode_attention.cu"
-        " + src/repro_torch/kernels/csrc/fused_expand.cu",
+        route="cuda", source="src/repro_torch/kernels/csrc/decode_attention.cu",
         replaces="src/repro/kernels/fused_decode.py:238"),
     "fused_decode_jd_paged": dict(
-        route="cuda", source="src/repro_torch/kernels/csrc/decode_attention.cu"
-        " + src/repro_torch/kernels/csrc/fused_expand.cu",
+        route="cuda", source="src/repro_torch/kernels/csrc/decode_attention.cu",
         replaces="src/repro/kernels/fused_decode.py:358"),
     "kv_quantize": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/kv_quant.cu",
@@ -265,7 +265,10 @@ def phase_kernels(dev):
                             False)
     fargs = (bfp["A"], bfp["B"], None, None)
     res = checks.check_fused_lora(case, bfp)
-    fused = [checks.ATTN_KERNEL, checks.EXPAND_KERNEL]
+    fused = [checks.ATTN_KERNEL]
+    one_pass = checks.check_one_pass(
+        "fused_decode_lora", lambda: fused_decode_lora(
+            q, k, v, kl, case["ids"], *fargs), k.shape[1])
     rows["fused_decode_lora"] = dict(
         max_abs_err=res["max_abs_err"], tolerance=res["tolerance"],
         ms=checks.cuda_ms(lambda: fused_decode_lora(q, k, v, kl,
@@ -293,6 +296,10 @@ def phase_kernels(dev):
                           False, False)
     res = checks.check_fused_jd(case, jfp)
     jargs = (jfp["U"], jfp["V"], jfp["sigma"], jfp["cluster_of"])
+    checks.check_one_pass("fused_decode_jd", lambda: fused_decode_jd(
+        q, k, v, kl, case["ids"], *jargs), k.shape[1])
+    log(f"[kernels] one fused call = {one_pass} decode_attn launch and no "
+        f"other kernel (unfiltered profile), lora and jd")
     rows["fused_decode_jd"] = dict(
         max_abs_err=res["max_abs_err"], tolerance=res["tolerance"],
         ms=checks.cuda_ms(lambda: fused_decode_jd(q, k, v, kl, case["ids"],
@@ -371,7 +378,7 @@ def paged_serve_rows(dev, gen, case, lora_banks, jd_banks):
     la = (case["ids"], lora_banks["A"], lora_banks["B"])
     ja = (case["ids"], jd_banks["U"], jd_banks["V"], jd_banks["sigma"],
           jd_banks["cluster_of"])
-    fused = [checks.ATTN_KERNEL, checks.EXPAND_KERNEL]
+    fused = [checks.ATTN_KERNEL]
     specs = {"flash_decode_paged": (flash_decode_paged, flash_decode, (),
                                     [checks.ATTN_KERNEL]),
              "fused_decode_lora_paged": (fused_decode_lora_paged,
@@ -380,6 +387,9 @@ def paged_serve_rows(dev, gen, case, lora_banks, jd_banks):
                                        fused_decode_jd, ja, fused)}
     rows = {}
     for name, (paged, cont, extra, kernels) in specs.items():
+        if name != "flash_decode_paged":
+            checks.check_one_pass(name, lambda: paged(*pa, *extra),
+                                  pc["page_table"].shape[1] * pc["page_t"])
         rows[name] = {"serve": dict(
             page_t=16, ms=checks.cuda_ms(lambda: paged(*pa, *extra)),
             device_ms=checks.device_ms(lambda: paged(*pa, *extra), kernels),
@@ -795,7 +805,8 @@ def phase_serve(dev):
         log("[serve] " + json.dumps(row))
     launches = _serve_launches(adapter_quant, flash_decode, fused_decode)
     log("[serve] launches on the main path: " + json.dumps(launches)
-        + ' (fused: an attention and an expand launch per layer per step);'
+        + ' (fused: one attention launch per layer per step, the o-projection'
+        ' delta in it);'
         ' reduced: [] (all 32 layers, full width)')
     log("[serve] the port's kernel launches per decode step: " + json.dumps(
         {f"{r['mode']}/{r['decode_path']}"
@@ -846,7 +857,7 @@ def phase_paged_kv(dev, rows):
         f"1024-2044)")
 
     # timed at this path's shapes: B 8, kv_len 1028-2048, pages of 128
-    fused = [checks.ATTN_KERNEL, checks.EXPAND_KERNEL]
+    fused = [checks.ATTN_KERNEL]
     specs = {  # name: (mode, paged, contiguous, plain, check, kernels)
         "flash_decode_paged": (
             "lora", flash_decode.flash_decode_paged, flash_decode.flash_decode,
@@ -878,6 +889,13 @@ def phase_paged_kv(dev, rows):
             nbytes = checks.fused_bytes(case, banks, mode)
             flops = checks.fused_flops(case, banks, mode)
         res = check(pc, banks)
+        if name != "flash_decode_paged":
+            n = checks.check_one_pass(
+                name, lambda: paged(*pa, *extra),
+                pc["page_table"].shape[1] * pc["page_t"])
+            log(f"[paged_kv] one {name} call = {n} decode_attn launches "
+                f"(the chunks, then the merge with the delta) and no other "
+                f"kernel (unfiltered profile)")
         # two calls of the split kernels, same bits
         for fn in (lambda: paged(*pa, *extra), lambda: cont(*ca, *extra)):
             for a, b in zip(fn(), fn()):
@@ -1506,7 +1524,7 @@ def pixtral_kernel_rows(dev) -> dict:
                          False, False)
     largs = (lora["A"], lora["B"], None, None)
     jargs = (jd["U"], jd["V"], jd["sigma"], jd["cluster_of"])
-    fused = [checks.ATTN_KERNEL, checks.EXPAND_KERNEL]
+    fused = [checks.ATTN_KERNEL]
     out = {}
     for name, res, fn, plain, kernels, nbytes, flops in (
             ("flash_decode", checks.check_flash_decode(case),

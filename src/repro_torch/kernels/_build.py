@@ -45,12 +45,10 @@ SIGNATURES = {
     "flash_decode_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                             _I64, _I64, _I64, _I64, _F, _I, _I, _P, _I, _I,
                             _P, _P, _I, _P],
-    "fused_attn_shrink_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _I,
-                                 _P, _P, _I, _I, _I, _I, _I, _I64, _I64,
-                                 _I64, _I64, _F, _I, _I, _P, _I, _I, _P, _P,
-                                 _I, _P],
-    "fused_expand_launch": [_P, _P, _P, _P, _I, _I, _P, _I, _P, _P, _I, _I,
-                            _I, _I, _P],
+    "fused_decode_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _I,
+                            _I, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I,
+                            _I64, _I64, _I64, _I64, _F, _I, _I, _P, _I, _I,
+                            _P, _P, _I, _P],
     "adapter_quant_launch": [_P, _I, _P, _P, _I64, _I, _I, _I, _F, _P],
     "adapter_dequant_group_launch": [_P, _I, _I, _P],
     "sgmv_shrink_launch": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _P],

@@ -69,8 +69,9 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA's data sheet
 F32_FLOPS = 67e12                # H100 SXM f32 outside the tensor cores
 # the __global__ functions of csrc/, as the profiler names them; the
 # attention prefix names both decode_attn_kernel and, where the cache holds
-# more than one chunk, decode_attn_merge_kernel
-ATTN_KERNEL, EXPAND_KERNEL = "decode_attn", "fused_expand_kernel"
+# more than one chunk, decode_attn_merge_kernel (the fused kernels too:
+# their delta is computed in the same launches)
+ATTN_KERNEL = "decode_attn"
 # adapter_quantize launches one of adapter_quant_{rows_vec,rows_group,
 # cols_cluster,rows,cols}_kernel: the prefix names them all;
 # adapter_dequantize and adapter_dequantize_group launch
@@ -148,6 +149,45 @@ def device_ms(fn: Callable[[], object], kernels, iters: int = 20) -> float:
               f"calls; timed per record", file=sys.stderr)
     us = sum(t / n * max(1, round(n / iters)) for n, t in per_kernel.values())
     return us / 1e3
+
+
+def kernel_launches(fn: Callable[[], object],
+                    iters: int = 10) -> Dict[str, int]:
+    """{kernel name: launches} of ``iters`` calls of ``fn`` (after a
+    warm-up call), from an unfiltered ``torch.profiler`` record: every
+    kernel the calls launch, whatever its name."""
+    from torch.autograd import DeviceType
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return {ev.key: ev.count for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA}
+
+
+def check_one_pass(name: str, fn: Callable[[], object], S: int,
+                   iters: int = 10) -> int:
+    """Assert that each call of ``fn``, a fused decode kernel over ``S``
+    cache positions, launches ``attention_launches(S)`` kernels (one, or
+    the chunks' and the merge's), every one named ``decode_attn*``: no
+    second stage.  Counted over ``iters`` calls of one record; the tracer
+    drops a record now and then (:func:`device_ms`), so up to
+    ``iters // 2`` missing records pass, and a launch too many or a kernel
+    of another name fails.  Returns the launches per call."""
+    from .flash_decode import attention_launches
+    want = attention_launches(S)
+    seen = kernel_launches(fn, iters)
+    total = sum(seen.values())
+    if any(ATTN_KERNEL not in k for k in seen) or \
+            not want * iters - iters // 2 <= total <= want * iters:
+        raise AssertionError(f"{name}: {iters} calls launched {seen}, "
+                             f"expected {want} decode_attn kernel(s) a call "
+                             f"and nothing else")
+    return want
 
 
 def _randn(shape, gen, device, dtype, std=1.0):

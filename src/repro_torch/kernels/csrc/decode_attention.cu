@@ -1,12 +1,11 @@
 // Decode attention (one query token per sequence, GQA) with an optional
-// adapter "shrink" epilogue: the Hopper kernels behind
-// repro_torch/kernels/flash_decode.py and the first pass of
+// adapter epilogue, the o-projection's LoRA or JD delta: the Hopper
+// kernels behind repro_torch/kernels/flash_decode.py and
 // repro_torch/kernels/fused_decode.py.
 //
 // Replaces the TPU kernels kernels/flash_decode.py::flash_decode (body
-// _decode_kernel) and flash_decode_paged, and the attention half plus the
-// rank-r shrink of kernels/fused_decode.py::fused_decode_lora /
-// fused_decode_jd and their _paged variants.
+// _decode_kernel) and flash_decode_paged, and kernels/fused_decode.py::
+// fused_decode_lora / fused_decode_jd and their _paged variants.
 //
 // Split over the sequence (flash-decoding).  The valid prefix kv_len[b] of
 // each (b, kv-head) is cut into chunks of SPLIT_S positions, chunk c
@@ -72,23 +71,44 @@
 // touched (the entries may hold anything); the TPU kernel fetches and
 // masks them, with the same result.  PAGED only picks the addresses.
 //
-// Epilogue modes:
+// Epilogue modes (the fused kernels):
 //   MODE_NONE: write out (q's dtype) and the softmax stats l, m;
 //   MODE_ROWS: raw LoRA.  t[j] = sum_c of[c] * A[ids[b], j, head cols c],
-//              partial[b, kvh, j] = t[j] * a_scale[ids[b], j];
+//              partial[kvh, j] = t[j] * a_scale[ids[b], j], then
+//              delta[b, o] = (sum_j T[j] * B[ids[b], o, j])
+//                            * b_scale[ids[b], o];
 //   MODE_COLS: JD.  t[j] = sum_c of[c] * V[cid, head rows c, j],
-//              partial[b, kvh, j] = t[j] * v_scale[cid, j],
-//              with cid = cluster_of[ids[b]].
+//              partial[kvh, j] = t[j] * v_scale[cid, j], then T is taken
+//              through Sigma[ids[b]] (diag: T[j] * sigma[j]; full: sum_j
+//              T[j] * Sigma[j, q]) and expanded through U[cid] and u_scale,
+//              with cid = cluster_of[ids[b]];
+// T[j] = sum over kv-heads h = 0 .. Kv-1, in that order, of partial[h, j].
 // `of` is the f32 normalised attention output, taken before the cast (as
 // _finalized_attn on the TPU).  The TPU carries t across kv-heads in
-// scratch because its grid runs in order; here blocks run in parallel, so
-// each writes its head's partial and fused_expand.cu sums them in head
-// order.
+// scratch because its grid runs in order, and its last head's epilogue
+// expands (_expand_out).  Here the Kv blocks of a sequence run in
+// parallel, so a shrink mode launches them as one thread-block cluster of
+// Kv blocks (Kv <= 16, the card's non-portable cluster limit): each block
+// pushes its r partials into slot kvh of every block's shared memory
+// (distributed shared memory), and every block sums the Kv slots in head
+// order (every block gets the same T, bit for bit), applies Sigma, and
+// expands its own 1/Kv of the d_out channels, thread t taking channels
+// t, t + 128, ... (coalesced writes of delta).  No atomics: one launch per
+// fused call where the cache is one chunk, two where it is split (the
+// chunks, then the merge, whose blocks form the clusters).  MODE_NONE
+// kernels launch without a cluster and run none of this code.
 //
-// The shrink's bank slice (and, in the merge, the chunks' partials) is
-// copied to shared memory with cp.async as the block starts, so that its
-// latency hides behind the attention; the shrink then reads it 16 bytes
-// at a time where alignment and r allow.
+// The shrink's bank slice with its scales, this block's expand rows of B
+// or U with their scales, and Sigma[ids[b]] are copied to shared memory
+// by bulk copies (the copy engine; one thread issues them) as the block
+// starts, so that their latency hides behind the attention; each group
+// completes on its own transaction barrier, so the shrink waits only for
+// its slice and the expand for its rows.  They are read 16 bytes at a
+// time where alignment and r allow (element loads from device memory
+// otherwise, or where they do not fit).  The exchange pushes each partial
+// into every block's shared memory with st.async, counted on a third
+// barrier of the receiving block: no block reads another's memory, so no
+// block has to wait for the others before it leaves.
 //
 // Bound on an H100: memory.  The valid K/V rows are read once (2 * kv_len
 // * hd * 2 bytes per (b, kv-head) in bf16) with ~2*G flops per byte, far
@@ -98,7 +118,14 @@
 // (the unsplit kernel had 64, under half of the 132 SMs), each keeping
 // NSTAGE - 1 tiles of copies outstanding, and on the tensor cores a
 // 32-row tile costs a warp some 60 instructions of arithmetic, counted
-// from the code, where the CUDA-core path takes some 400.
+// from the code, where the CUDA-core path takes some 400.  The adapter's
+// bytes (d_out * r per slot for the expand) are a few hundred KB a layer:
+// at the serving shape a fused call is latency, which the single launch
+// and the staged slices address.
+
+#include <mutex>
+#include <utility>
+#include <vector>
 
 #include "common.cuh"
 
@@ -113,6 +140,12 @@
 #define SLICE_MAX (32 * 1024)  // a bank slice staged for the shrink, at most
 #define MAX_SMEM_BLOCK (227 * 1024)   // an H100 block's shared memory
 #define ACC_MAX (64 * 1024)    // the merge's staged chunk partials, at most
+#define EXPAND_MAX (48 * 1024) // staged expand rows (or Sigma), at most
+#define KV_MAX 16              // blocks in a cluster (non-portable limit)
+#define STAGER (ATTN_THREADS - 32)  // the thread that sets up the barriers
+                                    // and issues the bulk copies: the last
+                                    // warp's, so that warp 0 (the merge's
+                                    // per-row work) never waits on ids
 
 #define MODE_NONE 0
 #define MODE_ROWS 1
@@ -174,15 +207,56 @@ struct Epilogue {
   int mode;
   const int* ids;
   const int* cluster_of;
-  const void* bank;
+  const void* bank;          // the shrink: A (MODE_ROWS) or V (MODE_COLS)
   int bank_dtype;
   const float* bank_scale;
   int r;
-  float* partial;
+  const void* sigma;         // JD: (n, r) or (n, r, r), f32 or bf16
+  int sigma_dtype, sigma_full;
+  const void* w;             // the expand: B (MODE_ROWS) or U (MODE_COLS)
+  int w_dtype;
+  const float* w_scale;
+  int d_out;
+  float* delta;              // (B, d_out) f32
+  int w_stage, sig_stage;    // bytes staged in shared memory (0: none);
+                             // set by the launch (fused_smem)
 };
 
 static __host__ __device__ __forceinline__ int elem_bytes(int dtype) {
   return dtype == DT_F32 ? 4 : dtype == DT_BF16 ? 2 : 1;
+}
+
+// The expand's output channels a block takes: ceil(d_out / Kv)
+static __host__ __device__ __forceinline__ int expand_cols(const Epilogue& e,
+                                                           int Kv) {
+  return (e.d_out + Kv - 1) / Kv;
+}
+
+// Whether the expand reads its rows of W 16 bytes at a time
+static __host__ __device__ __forceinline__ bool expand16(const Epilogue& e) {
+  return (e.r * elem_bytes(e.w_dtype)) % 16 == 0 && aligned16(e.w);
+}
+
+// Whether a block's expand scales (and the shrink's r scales) start and
+// end on 16 bytes, as a bulk copy needs
+static __host__ __device__ __forceinline__ bool scale16(const Epilogue& e,
+                                                        int Kv) {
+  return e.d_out % 4 == 0 && expand_cols(e, Kv) % 4 == 0 &&
+         aligned16(e.w_scale);
+}
+
+static __host__ __device__ __forceinline__ bool bsc16(const Epilogue& e) {
+  return e.r % 4 == 0 && aligned16(e.bank_scale);
+}
+
+// Bytes of the expand's staged scales, after its staged rows
+static __host__ __device__ __forceinline__ int scale_stage_bytes(
+    const Epilogue& e, int Kv) {
+  return scale16(e, Kv) ? 4 * expand_cols(e, Kv) : 0;
+}
+
+static __host__ __device__ __forceinline__ int sigma_elems(const Epilogue& e) {
+  return e.sigma_full ? e.r * e.r : e.r;
 }
 
 // Whether the shrink can read its bank slice 16 bytes at a time
@@ -237,8 +311,8 @@ static __device__ __forceinline__ void unpack_w(const int8_t* p,
 #define JB 4
 template <typename W>
 static __device__ __forceinline__ void shrink_rows16(
-    const Epilogue& e, const float* of_s, float* pb, int id, const W* bank,
-    int64_t ld, int GH) {
+    const Epilogue& e, const float* of_s, float* pb, const float* bsc,
+    const W* bank, int64_t ld, int GH) {
   constexpr int EB = Chunk<W>::N;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nck = GH / EB;
@@ -262,7 +336,7 @@ static __device__ __forceinline__ void shrink_rows16(
     for (int jj = 0; jj < JB; ++jj) {
       const float d = warp_sum(dot[jj]);
       if (lane == 0 && j0 + jj < e.r)
-        pb[j0 + jj] = __fmul_rn(d, e.bank_scale[(int64_t)id * e.r + j0 + jj]);
+        pb[j0 + jj] = __fmul_rn(d, bsc[j0 + jj]);
     }
   }
 }
@@ -274,8 +348,8 @@ static __device__ __forceinline__ void shrink_rows16(
 // in warp order
 template <typename W>
 static __device__ __forceinline__ void shrink_cols16(
-    const Epilogue& e, const float* of_s, float* red_s, float* pb, int cid,
-    const W* bank, int GH) {
+    const Epilogue& e, const float* of_s, float* red_s, float* pb,
+    const float* bsc, const W* bank, int GH) {
   constexpr int EB = Chunk<W>::N;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int r = e.r, cpr = r / EB;
@@ -302,20 +376,21 @@ static __device__ __forceinline__ void shrink_cols16(
   if (tid < r) {
     float d = red_s[tid];
     for (int w = 1; w < ATTN_WARPS; ++w) d = __fadd_rn(d, red_s[w * r + tid]);
-    pb[tid] = __fmul_rn(d, e.bank_scale[(int64_t)cid * r + tid]);
+    pb[tid] = __fmul_rn(d, bsc[tid]);
   }
 }
 
 // The shrink for bank element type W; `slice` the bank slice staged in
-// shared memory by stage_slice, or null
+// shared memory by stage_epilogue, or null; bsc the r scales of the bank
+// row
 template <typename W>
 static __device__ __forceinline__ void shrink_typed(
     const Epilogue& e, const float* of_s, float* red_s, int b, int kvh,
-    int H, int Kv, int hd, const unsigned char* slice) {
+    int H, int Kv, int hd, const unsigned char* slice, float* pb,
+    const float* bsc) {
   const int GH = H / Kv * hd;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int r = e.r;
-  float* pb = e.partial + ((int64_t)b * Kv + kvh) * r;
   const int id = e.ids[b];
   const W* bank = static_cast<const W*>(e.bank);
   if (e.mode == MODE_ROWS) {
@@ -323,26 +398,26 @@ static __device__ __forceinline__ void shrink_typed(
     const int64_t ld = (int64_t)H * hd;
     const int64_t base = (int64_t)id * r * ld + (int64_t)kvh * GH;
     if (slice != nullptr)
-      return shrink_rows16<W>(e, of_s, pb, id,
+      return shrink_rows16<W>(e, of_s, pb, bsc,
                               reinterpret_cast<const W*>(slice), GH, GH);
     if (shrink16(e, H, Kv, hd))
-      return shrink_rows16<W>(e, of_s, pb, id, bank + base, ld, GH);
+      return shrink_rows16<W>(e, of_s, pb, bsc, bank + base, ld, GH);
     for (int j = warp; j < r; j += ATTN_WARPS) {
       float dot = 0.f;
       for (int c = lane; c < GH; c += 32)
         dot = __fmaf_rn(of_s[c], to_f(bank[base + j * ld + c]), dot);
       dot = warp_sum(dot);
-      if (lane == 0) pb[j] = __fmul_rn(dot, e.bank_scale[(int64_t)id * r + j]);
+      if (lane == 0) pb[j] = __fmul_rn(dot, bsc[j]);
     }
   } else {
     // V (k, H*hd, r): this head group's rows of cluster cid
     const int cid = e.cluster_of[id];
     const int64_t base = ((int64_t)cid * H * hd + (int64_t)kvh * GH) * r;
     if (slice != nullptr)
-      return shrink_cols16<W>(e, of_s, red_s, pb, cid,
+      return shrink_cols16<W>(e, of_s, red_s, pb, bsc,
                               reinterpret_cast<const W*>(slice), GH);
     if (shrink16(e, H, Kv, hd))
-      return shrink_cols16<W>(e, of_s, red_s, pb, cid, bank + base, GH);
+      return shrink_cols16<W>(e, of_s, red_s, pb, bsc, bank + base, GH);
     // thread (part, j) sums rows part, part + P, ... of column j
     const int P = ATTN_THREADS / r;
     if (tid < P * r) {
@@ -358,57 +433,351 @@ static __device__ __forceinline__ void shrink_typed(
       float dot = 0.f;
       for (int part = 0; part < P; ++part)
         dot = __fadd_rn(dot, red_s[part * r + tid]);
-      pb[tid] = __fmul_rn(dot, e.bank_scale[(int64_t)cid * r + tid]);
+      pb[tid] = __fmul_rn(dot, bsc[tid]);
     }
   }
 }
 
 // The rank-r shrink of one (b, kv-head)'s normalised f32 output of_s
-// (G, hd) in shared memory; every thread of the block calls it.  16-byte
-// reads of the bank slice wherever its alignment and r allow (from shared
-// memory where stage_slice copied it at the block's start: the shrink is
-// latency), element loads otherwise.
+// (G, hd) in shared memory, into pb (r floats of this block's shared
+// memory), with the bank row's r scales bsc; every thread of the block
+// calls it.  16-byte reads of the bank slice wherever its alignment and r
+// allow (from shared memory where stage_epilogue copied it at the block's
+// start: the shrink is latency), element loads otherwise.
 static __device__ __forceinline__ void shrink_epilogue(
     const Epilogue& e, const float* of_s, float* red_s, int b, int kvh,
-    int H, int Kv, int hd, const unsigned char* slice) {
+    int H, int Kv, int hd, const unsigned char* slice, float* pb,
+    const float* bsc) {
   if (e.bank_dtype == DT_BF16)
-    shrink_typed<__nv_bfloat16>(e, of_s, red_s, b, kvh, H, Kv, hd, slice);
+    shrink_typed<__nv_bfloat16>(e, of_s, red_s, b, kvh, H, Kv, hd, slice,
+                                pb, bsc);
   else if (e.bank_dtype == DT_I8)
-    shrink_typed<int8_t>(e, of_s, red_s, b, kvh, H, Kv, hd, slice);
+    shrink_typed<int8_t>(e, of_s, red_s, b, kvh, H, Kv, hd, slice, pb, bsc);
   else
-    shrink_typed<float>(e, of_s, red_s, b, kvh, H, Kv, hd, slice);
+    shrink_typed<float>(e, of_s, red_s, b, kvh, H, Kv, hd, slice, pb, bsc);
 }
 
-// The first byte of (b, kv-head)'s bank slice: its loads of ids (and
-// cluster_of) are issued where this is called and waited for only where
-// the result is used, so they overlap other work
-static __device__ __forceinline__ const unsigned char* slice_src(
-    const Epilogue& e, int b, int kvh, int H, int Kv, int hd) {
-  const int64_t es = elem_bytes(e.bank_dtype);
-  const int64_t GH = (int64_t)(H / Kv) * hd;
-  const int id = e.ids[b];
-  const int64_t row = e.mode == MODE_ROWS ? (int64_t)id * e.r * H * hd
-                                          : (int64_t)e.cluster_of[id] * H *
-                                                hd * e.r;
-  return static_cast<const unsigned char*>(e.bank) +
-         (row + kvh * GH * (e.mode == MODE_ROWS ? 1 : e.r)) * es;
+// -- the fused epilogue: a cluster over a sequence's kv-heads ---------------
+
+// Cluster barrier halves (PTX defaults: arrive releases, wait acquires,
+// shared memory included; every thread of every block of the cluster
+// takes part)
+static __device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive;\n" ::: "memory");
 }
 
-// Copy the bank slice of `bytes` (slice_bytes) from src (slice_src) to
-// shared memory with 16-byte cp.async copies, in the layout the shrink
-// reads: MODE_ROWS r rows of GH columns, MODE_COLS GH rows of r columns
-static __device__ __forceinline__ void stage_slice(const Epilogue& e,
-                                                   const unsigned char* src,
-                                                   int H, int Kv, int hd,
-                                                   unsigned char* dst,
+static __device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
+}
+
+// p's counterpart in the shared memory of block `rank` of this cluster
+// (distributed shared memory), as a shared::cluster address
+static __device__ __forceinline__ uint32_t cluster_addr(const void* p,
+                                                        int rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(a)
+               : "r"(smem_u32(p)), "r"(rank));
+  return a;
+}
+
+// A transaction barrier in shared memory, used for one phase: one arrival
+// (this block's, with the bytes it expects) plus the bytes that bulk and
+// st.async copies complete
+static __device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+static __device__ __forceinline__ void mbar_expect(uint64_t* bar,
                                                    int bytes) {
-  const int64_t es = elem_bytes(e.bank_dtype);
-  const int per = e.mode == MODE_ROWS ? (H / Kv) * hd * es / 16 : 1 << 30;
-  const int64_t ld = (int64_t)H * hd * es;     // MODE_ROWS: row to row
-  for (int i = threadIdx.x; i < bytes / 16; i += ATTN_THREADS) {
-    const int j = i / per;
-    cp_async16(dst + i * 16, src + j * ld + (i - j * per) * 16, 16);
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(smem_u32(bar)), "r"(bytes)
+               : "memory");
+}
+
+static __device__ __forceinline__ bool mbar_try(uint64_t* bar) {
+  uint32_t done;
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+      "selp.u32 %0, 1, 0, p;\n"
+      "}\n"
+      : "=r"(done)
+      : "r"(smem_u32(bar))
+      : "memory");
+  return done != 0;
+}
+
+// Wait for the barrier's phase; a copy that never lands traps (the launch
+// fails with an error) instead of hanging the card
+static __device__ __forceinline__ void mbar_wait(uint64_t* bar) {
+  for (int n = 0; !mbar_try(bar); ++n)
+    if (n == (1 << 22)) __trap();
+}
+
+// 4 bytes into another block's shared memory, completing 4 bytes of its
+// barrier (both shared::cluster addresses)
+static __device__ __forceinline__ void st_async(uint32_t dst, float v,
+                                                uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, "
+      "[%2];\n" ::"r"(dst), "r"(__float_as_uint(v)), "r"(bar)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) from device memory to this block's shared
+// memory by the copy engine (a bulk copy; both 16-byte aligned), counted
+// on the barrier bar
+static __device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                                 int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)), "l"(src), "r"(bytes),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+// The fused epilogue's own shared memory: three barriers (the shrink's
+// staged operands, the expand's, the exchange), t (this block's partial),
+// x (T, the head-order sum), u (T through Sigma), bsc (the shrink's r
+// scales, staged where bsc16) and recv (Kv x r: the cluster's partials,
+// pushed by their blocks)
+static __host__ __device__ __forceinline__ int xch_bytes(const Epilogue& e,
+                                                         int Kv) {
+  return 32 + 4 * 4 * ATTN_THREADS + (4 * Kv * e.r + 15) / 16 * 16;
+}
+
+// That memory from a 16-byte aligned base, then what the launch staged
+// (fused_smem's layout)
+struct FusedSmem {
+  uint64_t *sbar, *wbar, *xbar;
+  float *t, *x, *u, *bsc, *recv;
+  unsigned char* slice;      // the shrink's bank slice (sbytes)
+  unsigned char* w;          // this block's expand rows (e.w_stage)
+  float* sc;                 // their scales
+  unsigned char* sig;        // Sigma[ids[b]] (e.sig_stage)
+};
+
+static __device__ __forceinline__ FusedSmem carve(const void* after,
+                                                  const Epilogue& e,
+                                                  int sbytes, int Kv) {
+  unsigned char* p = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(after) + 15) & ~uintptr_t(15));
+  FusedSmem f;
+  f.sbar = reinterpret_cast<uint64_t*>(p);
+  f.wbar = f.sbar + 1;
+  f.xbar = f.sbar + 2;
+  f.t = reinterpret_cast<float*>(p + 32);
+  f.x = f.t + ATTN_THREADS;
+  f.u = f.x + ATTN_THREADS;
+  f.bsc = f.u + ATTN_THREADS;
+  f.recv = f.bsc + ATTN_THREADS;
+  f.slice = p + xch_bytes(e, Kv);
+  f.w = f.slice + sbytes;
+  f.sc = reinterpret_cast<float*>(f.w + e.w_stage);
+  f.sig = f.w + e.w_stage + (e.w_stage > 0 ? scale_stage_bytes(e, Kv) : 0);
+  return f;
+}
+
+// Where the epilogue's operands lie in device memory: the shrink's bank
+// slice (A[id]'s rows at this head group's columns, or V[cid]'s rows of
+// this head group) and r scales, this block's expand rows o0 .. o0+n-1 of
+// W[w_idx] (n = 0 for a block past d_out), their scales, and Sigma[id].
+// Called as the block starts: ids (and cluster_of) are in flight while
+// the block goes on.
+struct EpiSrc {
+  const unsigned char* slice;
+  const float* bsc;
+  const unsigned char* w;
+  const float* sc;
+  const unsigned char* sig;
+  int o0, n;
+};
+
+static __device__ __forceinline__ EpiSrc epi_src(const Epilogue& e, int b,
+                                                 int kvh, int H, int Kv,
+                                                 int hd) {
+  const int id = e.ids[b];
+  const int w_idx = e.mode == MODE_ROWS ? id : e.cluster_of[id];
+  const int C = expand_cols(e, Kv);
+  const int64_t GH = (int64_t)(H / Kv) * hd;
+  EpiSrc s;
+  s.slice = static_cast<const unsigned char*>(e.bank) +
+            ((int64_t)w_idx * e.r * H * hd +
+             kvh * GH * (e.mode == MODE_ROWS ? 1 : e.r)) *
+                elem_bytes(e.bank_dtype);
+  s.o0 = min(e.d_out, kvh * C);
+  s.n = min(e.d_out, s.o0 + C) - s.o0;
+  const int64_t row = (int64_t)w_idx * e.d_out + s.o0;
+  s.w = static_cast<const unsigned char*>(e.w) +
+        row * e.r * elem_bytes(e.w_dtype);
+  s.sc = e.w_scale + row;
+  s.bsc = e.bank_scale + (int64_t)w_idx * e.r;   // A's or V's row of scales
+  s.sig = e.sigma == nullptr
+              ? nullptr
+              : static_cast<const unsigned char*>(e.sigma) +
+                    (int64_t)id * sigma_elems(e) * elem_bytes(e.sigma_dtype);
+  return s;
+}
+
+// Start the bulk copies of what the launch staged, by STAGER: the
+// shrink's bank slice (sbytes; MODE_ROWS r rows of GH columns, MODE_COLS
+// GH rows of r columns) and scales on f.sbar, this block's expand rows,
+// their scales and Sigma[id] on f.wbar
+static __device__ __forceinline__ void stage_epilogue(const Epilogue& e,
+                                                      const EpiSrc& s,
+                                                      const FusedSmem& f,
+                                                      int H, int Kv, int hd,
+                                                      int sbytes) {
+  const bool bsc = bsc16(e);
+  mbar_expect(f.sbar, sbytes + (bsc ? 4 * e.r : 0));
+  const int wrows = e.w_stage > 0 ? s.n * e.r * elem_bytes(e.w_dtype) : 0;
+  const bool sc = wrows > 0 && scale16(e, Kv);
+  mbar_expect(f.wbar, wrows + (sc ? 4 * s.n : 0) + e.sig_stage);
+  if (sbytes > 0 && e.mode == MODE_ROWS) {
+    const int row = sbytes / e.r;
+    const int64_t ld = (int64_t)H * hd * elem_bytes(e.bank_dtype);
+    for (int j = 0; j < e.r; ++j)
+      bulk_copy(f.slice + j * row, s.slice + j * ld, row, f.sbar);
+  } else if (sbytes > 0) {
+    bulk_copy(f.slice, s.slice, sbytes, f.sbar);
   }
+  if (bsc) bulk_copy(f.bsc, s.bsc, 4 * e.r, f.sbar);
+  if (wrows > 0) bulk_copy(f.w, s.w, wrows, f.wbar);
+  if (sc) bulk_copy(f.sc, s.sc, 4 * s.n, f.wbar);
+  if (e.sig_stage > 0) bulk_copy(f.sig, s.sig, e.sig_stage, f.wbar);
+}
+
+// delta[b, o0 + i] = (sum_j t[j] * W[w_idx, o0 + i, j]) * w_scale[.., o0 + i]
+// for this block's channels, thread t taking i = t, t + 128, ...: XCH of
+// them at once, as independent sums that share each read of t; each sum
+// in ascending j, from shared memory where staged (16 bytes at a time
+// where expand16) or device memory
+#define XCH 4
+template <typename W>
+static __device__ __forceinline__ void expand_typed(const Epilogue& e,
+                                                    const float* t,
+                                                    const EpiSrc& s,
+                                                    const FusedSmem& f,
+                                                    int b, int Kv) {
+  const int r = e.r;
+  const bool staged = e.w_stage > 0;
+  const W* w = reinterpret_cast<const W*>(staged ? f.w : s.w);
+  const float* sc = staged && scale16(e, Kv) ? f.sc : s.sc;
+  float* out = e.delta + (int64_t)b * e.d_out + s.o0;
+  const bool v16 = expand16(e);
+  for (int i0 = threadIdx.x; i0 < s.n; i0 += XCH * ATTN_THREADS) {
+    float acc[XCH];
+#pragma unroll
+    for (int q = 0; q < XCH; ++q) acc[q] = 0.f;
+    if (v16) {
+      constexpr int EB = Chunk<W>::N;
+      for (int c = 0; c < r; c += EB) {
+        float tc[EB];
+#pragma unroll
+        for (int k = 0; k < EB; ++k) tc[k] = t[c + k];
+#pragma unroll
+        for (int q = 0; q < XCH; ++q) {
+          const int i = i0 + q * ATTN_THREADS;
+          if (i < s.n) {
+            float x[EB];
+            unpack_w(w + (int64_t)i * r + c, x);
+#pragma unroll
+            for (int k = 0; k < EB; ++k)
+              acc[q] = __fmaf_rn(tc[k], x[k], acc[q]);
+          }
+        }
+      }
+    } else {
+      for (int j = 0; j < r; ++j) {
+        const float tj = t[j];
+#pragma unroll
+        for (int q = 0; q < XCH; ++q) {
+          const int i = i0 + q * ATTN_THREADS;
+          if (i < s.n)
+            acc[q] = __fmaf_rn(tj, to_f(w[(int64_t)i * r + j]), acc[q]);
+        }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < XCH; ++q) {
+      const int i = i0 + q * ATTN_THREADS;
+      if (i < s.n) out[i] = __fmul_rn(acc[q], sc[i]);
+    }
+  }
+}
+
+// A shrink block's first step: its barriers set up, and its arrival at
+// the cluster barrier whose wait (fused_epilogue) makes sure that every
+// block's exchange barrier is set up before any block pushes to it
+static __device__ __forceinline__ void cluster_start(const FusedSmem& f) {
+  if (threadIdx.x == STAGER) {
+    mbar_init(f.sbar);
+    mbar_init(f.wbar);
+    mbar_init(f.xbar);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster_arrive();
+}
+
+// The shrink, then the rest of the epilogue: this block's partial pushed
+// to every block of the cluster (slot kvh of their recv), the Kv partials
+// received summed in head order, Sigma (JD), and this block's share of the
+// expand.  Every thread of every block of the cluster calls it, with of_s
+// complete.  A block leaves only once all Kv pushes into it have landed,
+// so no push reaches a block that has gone.
+static __device__ __forceinline__ void fused_epilogue(
+    const Epilogue& e, const FusedSmem& f, const EpiSrc& s, const float* of_s,
+    float* red_s, int b, int kvh, int H, int Kv, int hd, int sbytes) {
+  const int tid = threadIdx.x, r = e.r;
+  mbar_wait(f.sbar);              // the shrink's slice and scales
+  shrink_epilogue(e, of_s, red_s, b, kvh, H, Kv, hd,
+                  sbytes > 0 ? f.slice : nullptr, f.t,
+                  bsc16(e) ? f.bsc : s.bsc);
+  __syncthreads();                // the partial is in f.t
+  cluster_wait();                 // every block's barrier is set up
+  if (tid == STAGER) mbar_expect(f.xbar, 4 * Kv * r);
+  for (int i = tid; i < Kv * r; i += ATTN_THREADS) {   // partial j to block h
+    const int h = i / r, j = i - h * r;
+    st_async(cluster_addr(f.recv + kvh * r + j, h), f.t[j],
+             cluster_addr(f.xbar, h));
+  }
+  mbar_wait(f.xbar);              // the Kv partials are in f.recv
+  if (tid < r) {
+    float t = 0.f;
+    for (int h = 0; h < Kv; ++h) t = __fadd_rn(t, f.recv[h * r + tid]);
+    f.x[tid] = t;
+  }
+  mbar_wait(f.wbar);              // the expand's rows, scales and Sigma
+  __syncthreads();
+  const float* t = f.x;
+  if (e.sigma != nullptr) {
+    if (tid < r) {
+      const void* sg = e.sig_stage > 0 ? f.sig : s.sig;
+      float u;
+      if (e.sigma_full) {         // u[q] = sum_j T[j] * Sigma[id, j, q]
+        u = 0.f;
+#pragma unroll 8
+        for (int j = 0; j < r; ++j)
+          u = __fmaf_rn(f.x[j], load_any(sg, (int64_t)j * r + tid,
+                                         e.sigma_dtype), u);
+      } else {                    // u[j] = T[j] * sigma[id, j]
+        u = __fmul_rn(f.x[tid], load_any(sg, tid, e.sigma_dtype));
+      }
+      f.u[tid] = u;
+    }
+    __syncthreads();
+    t = f.u;
+  }
+  if (e.w_dtype == DT_BF16)
+    expand_typed<__nv_bfloat16>(e, t, s, f, b, Kv);
+  else if (e.w_dtype == DT_I8)
+    expand_typed<int8_t>(e, t, s, f, b, Kv);
+  else
+    expand_typed<float>(e, t, s, f, b, Kv);
 }
 
 // Stage tile t of the chunk's sequence K_0 .. K_{nt-1}, V_0 .. V_{nt-1}
@@ -586,12 +955,15 @@ __global__ void __launch_bounds__(ATTN_THREADS) decode_attn_kernel(
   float* l_s = m_s + GB;
   float* red_s = l_s + GB;                             // (RED_FLOATS)
   float* of_s = red_s + RED_FLOATS;                    // (G, hd)
-  unsigned char* slice_s = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(of_s + G * hd) + 15) & ~uintptr_t(15));
-  // the shrink's bank slice: its address now, its copies with the last
-  // of the first tiles (so they fly behind the attention)
-  const unsigned char* slice_g =
-      SHRINK && sbytes > 0 ? slice_src(epi, b, kvh, H, Kv, hd) : nullptr;
+  // the epilogue's slices: their addresses now, their copies with the
+  // last of the first tiles (so they fly behind the attention)
+  FusedSmem fs{};
+  EpiSrc xs{};
+  if (SHRINK) {
+    fs = carve(of_s + G * hd, epi, sbytes, Kv);
+    cluster_start(fs);
+    xs = epi_src(epi, b, kvh, H, Kv, hd);
+  }
   // CUDA cores: the warps' partial sums (ATTN_WARPS, GB, hdp), over the
   // ring once the last tile is done with
   float* wacc = reinterpret_cast<float*>(smem);
@@ -624,8 +996,8 @@ __global__ void __launch_bounds__(ATTN_THREADS) decode_attn_kernel(
 #pragma unroll
     for (int t = 0; t < NSTAGE - 1; ++t) {
       ISSUE(t);
-      if (SHRINK && sbytes > 0 && g0 == 0 && t == NSTAGE - 2)
-        stage_slice(epi, slice_g, H, Kv, hd, slice_s, sbytes);
+      if (SHRINK && g0 == 0 && t == NSTAGE - 2 && tid == STAGER)
+        stage_epilogue(epi, xs, fs, H, Kv, hd, sbytes);
       cp_async_commit();
     }
     auto qx = [&](int g, int d) {
@@ -859,17 +1231,17 @@ __global__ void __launch_bounds__(ATTN_THREADS) decode_attn_kernel(
     __syncthreads();   // of_s complete; the next pass may reuse the rest
   }
 #undef ISSUE
-  if (SHRINK && nc == 1)
-    shrink_epilogue(epi, of_s, red_s, b, kvh, H, Kv, hd,
-                    sbytes > 0 ? slice_s : nullptr);
+  if (SHRINK)        // a shrink launch has one chunk (the merge runs it else)
+    fused_epilogue(epi, fs, xs, of_s, red_s, b, kvh, H, Kv, hd, sbytes);
 }
 
 // Merge the chunks of one (b, kv-head) in ascending order; then out, the
-// global l, m and the epilogue, as the one-chunk launch writes them.  The
-// chunks' partials (where they fit in ACC_MAX) are copied to shared memory
-// as the block starts, while it computes the weights w_c = exp(m_c - m),
-// and the shrink's bank slice while it merges.
-template <typename T>
+// global l, m and (SHRINK: a cluster of the sequence's Kv blocks) the
+// epilogue, as the one-chunk launch writes them.  The chunks' partials
+// (where they fit in ACC_MAX) are copied to shared memory as the block
+// starts, while it computes the weights w_c = exp(m_c - m), and the
+// epilogue's slices while it merges.
+template <typename T, bool SHRINK>
 __global__ void __launch_bounds__(ATTN_THREADS) decode_attn_merge_kernel(
     const float* __restrict__ ws_acc, const float* __restrict__ ws_ml,
     int nc, int H, int Kv, int hd, T* __restrict__ out,
@@ -886,8 +1258,6 @@ __global__ void __launch_bounds__(ATTN_THREADS) decode_attn_merge_kernel(
   float* w_s = of_s + GH;                              // (G, nc)
   float* acc_s = reinterpret_cast<float*>(
       (reinterpret_cast<uintptr_t>(w_s + G * nc) + 15) & ~uintptr_t(15));
-  unsigned char* slice_s = reinterpret_cast<unsigned char*>(
-      acc_s + (acc_staged ? nc * GH : 0));
   const float* ml = ws_ml + (int64_t)bk * nc * G * 2;  // (nc, G, 2)
   const float* acc = ws_acc + (int64_t)bk * nc * GH;   // (nc, G, hd)
   if (acc_staged) {
@@ -896,8 +1266,15 @@ __global__ void __launch_bounds__(ATTN_THREADS) decode_attn_merge_kernel(
     acc = acc_s;
   }
   cp_async_commit();
-  const unsigned char* slice_g =
-      sbytes > 0 ? slice_src(epi, b, kvh, H, Kv, hd) : nullptr;
+  FusedSmem fs{};
+  EpiSrc xs{};
+  if (SHRINK) {
+    // the epilogue's operands next, so that they fly while the block merges
+    fs = carve(acc_s + (acc_staged ? nc * GH : 0), epi, sbytes, Kv);
+    cluster_start(fs);
+    xs = epi_src(epi, b, kvh, H, Kv, hd);
+    if (tid == STAGER) stage_epilogue(epi, xs, fs, H, Kv, hd, sbytes);
+  }
   for (int g = tid; g < G; g += ATTN_THREADS) {
     float m = NEG_INF;
     for (int c = 0; c < nc; ++c) m = fmaxf(m, ml[(c * G + g) * 2]);
@@ -910,15 +1287,7 @@ __global__ void __launch_bounds__(ATTN_THREADS) decode_attn_merge_kernel(
     m_s[g] = m;
     l_s[g] = l;
   }
-  if (sbytes > 0) {
-    stage_slice(epi, slice_g, H, Kv, hd, slice_s, sbytes);
-    cp_async_commit();
-  }
-  // the partials in (the slice may still be in flight)
-  if (sbytes > 0)
-    cp_async_wait<1>();
-  else
-    cp_async_wait<0>();
+  cp_async_wait<0>();
   __syncthreads();
   T* ob = out + (int64_t)bk * GH;
   for (int i = tid; i < GH; i += ATTN_THREADS) {
@@ -938,11 +1307,10 @@ __global__ void __launch_bounds__(ATTN_THREADS) decode_attn_merge_kernel(
       m_out[(int64_t)bk * G + g] = m_s[g];
     }
   }
-  if (epi.mode == MODE_NONE) return;
-  cp_async_wait<0>();
-  __syncthreads();
-  shrink_epilogue(epi, of_s, red_s, b, kvh, H, Kv, hd,
-                  sbytes > 0 ? slice_s : nullptr);
+  if (SHRINK) {
+    __syncthreads();        // of_s complete
+    fused_epilogue(epi, fs, xs, of_s, red_s, b, kvh, H, Kv, hd, sbytes);
+  }
 }
 
 struct AttnArgs {
@@ -975,7 +1343,90 @@ static int allow_smem(K kernel, size_t bytes, size_t& allowed) {
   return err;
 }
 
-template <typename T>
+// The shared memory of a shrink launch: `base` bytes, then the fused
+// epilogue's (carve's layout): the exchange buffers, the shrink's bank
+// slice (sbytes: slice_bytes), this block's expand rows with their scales
+// (e.w_stage: the widest block's rows, where expand16 and under
+// EXPAND_MAX) and Sigma[id] (e.sig_stage: 16-byte multiples, under
+// EXPAND_MAX), each staged only where it still fits in MAX_SMEM_BLOCK
+static size_t fused_smem(size_t base, Epilogue& e, int H, int Kv, int hd,
+                         int& sbytes) {
+  size_t smem = base + 16 + xch_bytes(e, Kv);
+  sbytes = slice_bytes(e, H, Kv, hd);
+  if (smem + sbytes > MAX_SMEM_BLOCK) sbytes = 0;
+  smem += sbytes;
+  const int64_t wb =
+      (int64_t)expand_cols(e, Kv) * e.r * elem_bytes(e.w_dtype);
+  e.w_stage = expand16(e) && wb <= EXPAND_MAX ? (int)wb : 0;
+  if (e.w_stage > 0) {
+    const size_t with = smem + e.w_stage + scale_stage_bytes(e, Kv);
+    if (with > MAX_SMEM_BLOCK)
+      e.w_stage = 0;
+    else
+      smem = with;
+  }
+  const int sb = e.sigma == nullptr
+                     ? 0
+                     : sigma_elems(e) * elem_bytes(e.sigma_dtype);
+  e.sig_stage = sb % 16 == 0 && sb <= EXPAND_MAX && aligned16(e.sigma) &&
+                        smem + sb <= MAX_SMEM_BLOCK
+                    ? sb
+                    : 0;
+  return smem + e.sig_stage;
+}
+
+// The (shared memory, cluster size) pairs of one shrink kernel already
+// checked: the occupancy query runs before the first launch of each
+struct ClusterChecks {
+  std::mutex mu;
+  std::vector<std::pair<size_t, int>> done;
+};
+
+// Launch `kernel` as clusters of Kv blocks along x (a sequence's kv-heads:
+// blockIdx.x = b * Kv + kvh).  Above 8 blocks the cluster size is
+// non-portable and must be allowed; a shape whose cluster cannot be
+// resident (cudaOccupancyMaxActiveClusters 0) is refused, never launched.
+template <typename K, typename... Args>
+static int launch_cluster(K kernel, dim3 grid, size_t smem, int Kv,
+                          cudaStream_t stream, ClusterChecks& checks,
+                          Args&&... args) {
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = Kv;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(ATTN_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  {
+    std::lock_guard<std::mutex> lock(checks.mu);
+    const std::pair<size_t, int> key(smem, Kv);
+    bool seen = false;
+    for (const auto& d : checks.done) seen = seen || d == key;
+    if (!seen) {
+      int err = 0;
+      if (Kv > 8)
+        err = (int)cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      if (err) return err;
+      int n = 0;
+      err = (int)cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+      if (err) return err;
+      if (n < 1) return (int)cudaErrorInvalidConfiguration;
+      checks.done.push_back(key);
+    }
+  }
+  const int err =
+      (int)cudaLaunchKernelEx(&cfg, kernel, std::forward<Args>(args)...);
+  if (err) return err;
+  return (int)cudaGetLastError();
+}
+
+template <typename T, bool SHRINK>
 static int launch_merge(const AttnArgs& a) {
   static size_t allowed = 48 * 1024;
   const int G = a.H / a.Kv, GH = G * a.hd;
@@ -984,15 +1435,25 @@ static int launch_merge(const AttnArgs& a) {
   const bool acc_staged = GH % 4 == 0 && acc_bytes <= ACC_MAX &&
                           aligned16(a.ws_acc);
   if (acc_staged) smem += acc_bytes;
-  int sbytes = slice_bytes(a.epi, a.H, a.Kv, a.hd);
-  if (smem + sbytes > MAX_SMEM_BLOCK) sbytes = 0;
-  smem += sbytes;
-  int err = allow_smem(decode_attn_merge_kernel<T>, smem, allowed);
+  Epilogue epi = a.epi;
+  int sbytes = 0;
+  if (SHRINK) smem = fused_smem(smem, epi, a.H, a.Kv, a.hd, sbytes);
+  auto kernel = decode_attn_merge_kernel<T, SHRINK>;
+  int err = allow_smem(kernel, smem, allowed);
   if (err) return err;
-  decode_attn_merge_kernel<T><<<a.B * a.Kv, ATTN_THREADS, smem, a.stream>>>(
-      a.ws_acc, a.ws_ml, a.n_chunks, a.H, a.Kv, a.hd, static_cast<T*>(a.out),
-      a.l_out, a.m_out, a.epi, acc_staged, sbytes);
-  return (int)cudaGetLastError();
+  if constexpr (SHRINK) {
+    static ClusterChecks checks;
+    return launch_cluster(kernel, dim3(a.B * a.Kv), smem, a.Kv, a.stream,
+                          checks, a.ws_acc, a.ws_ml, a.n_chunks, a.H, a.Kv,
+                          a.hd, static_cast<T*>(a.out), a.l_out, a.m_out,
+                          epi, acc_staged, sbytes);
+  } else {
+    decode_attn_merge_kernel<T, false><<<a.B * a.Kv, ATTN_THREADS, smem,
+                                         a.stream>>>(
+        a.ws_acc, a.ws_ml, a.n_chunks, a.H, a.Kv, a.hd,
+        static_cast<T*>(a.out), a.l_out, a.m_out, epi, acc_staged, sbytes);
+    return (int)cudaGetLastError();
+  }
 }
 
 template <typename T, typename TKV, bool PAGED, bool SHRINK, bool MMA>
@@ -1000,23 +1461,36 @@ static int launch(const AttnArgs& a, bool vec) {
   static size_t allowed = 48 * 1024;
   const int G = a.H / a.Kv;
   size_t smem = attn_smem_bytes(G, a.hd, sizeof(TKV), PAGED);
-  int sbytes = SHRINK ? slice_bytes(a.epi, a.H, a.Kv, a.hd) : 0;
-  if (smem + 16 + sbytes > MAX_SMEM_BLOCK) sbytes = 0;
-  if (sbytes > 0) smem += 16 + sbytes;
-  int err = allow_smem(decode_attn_kernel<T, TKV, PAGED, SHRINK, MMA>, smem,
-                       allowed);
+  Epilogue epi = a.epi;
+  int sbytes = 0;
+  if (SHRINK) smem = fused_smem(smem, epi, a.H, a.Kv, a.hd, sbytes);
+  auto kernel = decode_attn_kernel<T, TKV, PAGED, SHRINK, MMA>;
+  int err = allow_smem(kernel, smem, allowed);
   if (err) return err;
   const dim3 grid(a.B * a.Kv, a.n_chunks);
-  decode_attn_kernel<T, TKV, PAGED, SHRINK, MMA><<<grid, ATTN_THREADS, smem,
-                                                   a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const TKV*>(a.k),
-      static_cast<const TKV*>(a.v), a.kv_len, a.H, a.Kv, a.hd, a.S,
-      a.n_chunks, a.k_sb, a.k_ss, a.v_sb, a.v_ss, a.scale, vec,
-      static_cast<T*>(a.out), a.l_out, a.m_out, a.ws_acc, a.ws_ml, a.epi,
-      sbytes, a.page_table, a.n_blocks, a.page_t);
-  err = (int)cudaGetLastError();
-  if (err || a.n_chunks == 1) return err;
-  return launch_merge<T>(a);
+  if constexpr (SHRINK) {   // one chunk: the whole call
+    static ClusterChecks checks;
+    return launch_cluster(
+        kernel, grid, smem, a.Kv, a.stream, checks,
+        static_cast<const T*>(a.q), static_cast<const TKV*>(a.k),
+        static_cast<const TKV*>(a.v), a.kv_len, a.H, a.Kv, a.hd, a.S,
+        a.n_chunks, a.k_sb, a.k_ss, a.v_sb, a.v_ss, a.scale, vec,
+        static_cast<T*>(a.out), a.l_out, a.m_out, a.ws_acc, a.ws_ml, epi,
+        sbytes, a.page_table, a.n_blocks, a.page_t);
+  } else {
+    decode_attn_kernel<T, TKV, PAGED, false, MMA><<<grid, ATTN_THREADS, smem,
+                                                    a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const TKV*>(a.k),
+        static_cast<const TKV*>(a.v), a.kv_len, a.H, a.Kv, a.hd, a.S,
+        a.n_chunks, a.k_sb, a.k_ss, a.v_sb, a.v_ss, a.scale, vec,
+        static_cast<T*>(a.out), a.l_out, a.m_out, a.ws_acc, a.ws_ml, epi,
+        sbytes, a.page_table, a.n_blocks, a.page_t);
+    err = (int)cudaGetLastError();
+    if (err || a.n_chunks == 1) return err;
+    // the chunks' launch carries no epilogue; the merge runs it
+    return a.epi.mode == MODE_NONE ? launch_merge<T, false>(a)
+                                   : launch_merge<T, true>(a);
+  }
 }
 
 template <typename T, typename TKV, bool PAGED, bool SHRINK>
@@ -1036,8 +1510,8 @@ static int launch_kv(const AttnArgs& a) {
                    aligned16(a.v) && (a.k_sb * es) % 16 == 0 &&
                    (a.k_ss * es) % 16 == 0 && (a.v_sb * es) % 16 == 0 &&
                    (a.v_ss * es) % 16 == 0;
-  // the shrink runs in this kernel only where there is one chunk (else in
-  // the merge)
+  // the epilogue runs in this kernel only where there is one chunk (else
+  // in the merge)
   const bool shrink = a.epi.mode != MODE_NONE && a.n_chunks == 1;
   if (a.page_table != nullptr)
     return shrink ? launch_mma<T, TKV, true, true>(a, vec)
@@ -1090,32 +1564,52 @@ int flash_decode_launch(const void* q, const void* k, const void* v,
                         const int* page_table, int n_blocks, int page_t,
                         float* ws_acc, float* ws_ml, int n_chunks,
                         void* stream) {
+  Epilogue none{};
+  none.mode = MODE_NONE;
   AttnArgs a{q, k, v, kv_len, B, H, Kv, hd, S, k_sb, k_ss, v_sb, v_ss,
-             scale, out, l_out, m_out, ws_acc, ws_ml, n_chunks,
-             Epilogue{MODE_NONE, nullptr, nullptr, nullptr, 0, nullptr, 0,
-                      nullptr},
+             scale, out, l_out, m_out, ws_acc, ws_ml, n_chunks, none,
              page_table, n_blocks, page_t, (cudaStream_t)stream};
   return dispatch(dtype, kv_dtype, a);
 }
 
-// attention + per-head shrink into partial (B, Kv, r) f32; cluster_of is
-// null for raw LoRA (rows of A) and set for JD (columns of V)
-int fused_attn_shrink_launch(const void* q, const void* k, const void* v,
-                             const int* kv_len, const int* ids,
-                             const int* cluster_of, const void* bank,
-                             int bank_dtype, const float* bank_scale, int r,
-                             void* out, float* partial, int B, int H, int Kv,
-                             int hd, int S, int64_t k_sb, int64_t k_ss,
-                             int64_t v_sb, int64_t v_ss, float scale,
-                             int dtype, int kv_dtype, const int* page_table,
-                             int n_blocks, int page_t, float* ws_acc,
-                             float* ws_ml, int n_chunks, void* stream) {
-  if (r < 1 || r > ATTN_THREADS) return (int)cudaErrorInvalidValue;
-  const int mode = cluster_of == nullptr ? MODE_ROWS : MODE_COLS;
+// Attention (out in q's dtype) and the o-projection delta (B, d_out) f32
+// in one launch (two where n_chunks > 1).  cluster_of and sigma are null
+// for raw LoRA (bank = A, rows; w = B) and set for JD (bank = V, columns;
+// sigma (n, r) or (n, r, r) as sigma_full says; w = U).  Scales are f32,
+// (n, r) for the bank and (n, d_out) for w; Kv <= KV_MAX (one cluster).
+int fused_decode_launch(const void* q, const void* k, const void* v,
+                        const int* kv_len, const int* ids,
+                        const int* cluster_of, const void* bank,
+                        int bank_dtype, const float* bank_scale, int r,
+                        const void* sigma, int sigma_dtype, int sigma_full,
+                        const void* w, int w_dtype, const float* w_scale,
+                        int d_out, float* delta, void* out, int B, int H,
+                        int Kv, int hd, int S, int64_t k_sb, int64_t k_ss,
+                        int64_t v_sb, int64_t v_ss, float scale, int dtype,
+                        int kv_dtype, const int* page_table, int n_blocks,
+                        int page_t, float* ws_acc, float* ws_ml,
+                        int n_chunks, void* stream) {
+  if (r < 1 || r > ATTN_THREADS || d_out < 1 || Kv > KV_MAX ||
+      (sigma == nullptr) != (cluster_of == nullptr))
+    return (int)cudaErrorInvalidValue;
+  Epilogue e{};
+  e.mode = cluster_of == nullptr ? MODE_ROWS : MODE_COLS;
+  e.ids = ids;
+  e.cluster_of = cluster_of;
+  e.bank = bank;
+  e.bank_dtype = bank_dtype;
+  e.bank_scale = bank_scale;
+  e.r = r;
+  e.sigma = sigma;
+  e.sigma_dtype = sigma_dtype;
+  e.sigma_full = sigma_full;
+  e.w = w;
+  e.w_dtype = w_dtype;
+  e.w_scale = w_scale;
+  e.d_out = d_out;
+  e.delta = delta;
   AttnArgs a{q, k, v, kv_len, B, H, Kv, hd, S, k_sb, k_ss, v_sb, v_ss,
-             scale, out, nullptr, nullptr, ws_acc, ws_ml, n_chunks,
-             Epilogue{mode, ids, cluster_of, bank, bank_dtype, bank_scale, r,
-                      partial},
+             scale, out, nullptr, nullptr, ws_acc, ws_ml, n_chunks, e,
              page_table, n_blocks, page_t, (cudaStream_t)stream};
   return dispatch(dtype, kv_dtype, a);
 }

@@ -2,37 +2,48 @@
 
 Replaces the TPU kernels ``kernels/fused_decode.py::fused_decode_lora`` and
 ``fused_decode_jd``.  On the TPU one kernel does it all, because its grid
-runs the kv-heads in order and a scratch accumulator carries the rank-r
-shrink from one head to the next.  On the H100 blocks run in parallel and
-in no order, so the work is two launches with no atomics:
+runs the kv-heads in order: a scratch accumulator carries the rank-r
+shrink from one head to the next and the last head's epilogue expands.
+On the H100 the kv-heads' blocks run in parallel, so
+``csrc/decode_attention.cu`` launches a sequence's Kv blocks as one
+thread-block cluster, in one launch and with no atomics:
 
-1. ``csrc/decode_attention.cu`` in a shrink mode runs the same attention
-   as :func:`flash_decode` (so ``out`` is bit-identical with it), then
-   contracts each (b, kv-head)'s f32 normalised output with its slice of
-   ``A[ids[b]]`` (LoRA) or ``V[cluster_of[ids[b]]]`` (JD), times the rank
-   scale, into a (B, Kv, r) f32 partial.  Where the cache holds more than
-   one chunk of ``flash_decode.SPLIT_S`` positions this is two launches:
-   the chunks, then their merge, which runs the shrink;
-2. ``csrc/fused_expand.cu``: one block per (b, 256 output channels) sums
-   the partials in head order, applies ``Sigma[ids[b]]`` (JD: diag or
-   full), expands through ``B[ids[b]]`` or ``U[cid]`` and applies the
+1. each block runs the same attention as :func:`flash_decode` (so ``out``
+   is bit-identical with it), then contracts its (b, kv-head)'s f32
+   normalised output with its slice of ``A[ids[b]]`` (LoRA) or
+   ``V[cluster_of[ids[b]]]`` (JD), times the rank scale, into r partials
+   in its own shared memory;
+2. each block pushes its partials into every block of the cluster
+   (distributed shared memory, ``st.async`` on a transaction barrier);
+   every block sums the Kv partials in head order, applies
+   ``Sigma[ids[b]]`` (JD: diag or full), and expands its 1/Kv of the
+   output channels through ``B[ids[b]]`` or ``U[cid]`` with the
    per-channel output scale.
 
+Where the cache holds more than one chunk of ``flash_decode.SPLIT_S``
+positions the chunks run first and their merge launch, clustered the same
+way, runs the epilogue: two launches.  The shrink's slice, the expand's
+rows, the scales and Sigma are staged in shared memory by bulk copies
+(the copy engine) behind the attention.
+``delta`` is bit-identical with the two-launch design it replaces (the
+same products and sums in the same order).  A cluster holds at most
+:data:`MAX_KV_HEADS` blocks, so the fused kernels take at most that many
+kv heads, on every device.
+
 What bounds it on an H100 is memory: the K/V prefix, plus the adapter
-slices (a few hundred KB per layer at mistral-7b's width); the partial
-round trip is B*Kv*r floats.  Banks are bf16, f32 or int8 with their
-scales; fp banks get scales of ones, as in the JAX wrappers, so one body
-serves both precisions.
+slices (a few hundred KB per layer at mistral-7b's width).  Banks are
+bf16, f32 or int8 with their scales; fp banks get scales of ones, as in
+the JAX wrappers, so one body serves both precisions.
 
 ``delta`` uses the f32 attention output, as the TPU kernel does, while the
 plain versions (``ref.fused_decode_*_ref``) use the bf16-rounded ``out``:
 the two differ by about one bf16 rounding of ``out`` times ||A||.
 
 The paged variants (replacing ``fused_decode_lora_paged`` and
-``fused_decode_jd_paged``) give the first launch a page table, so that it
-reads K/V from a pool of pages as ``flash_decode_paged`` does; the expand
-launch is the same.  On equal logical content their ``out`` and ``delta``
-are bit-identical with the contiguous variants'.
+``fused_decode_jd_paged``) give the launch a page table, so that it reads
+K/V from a pool of pages as ``flash_decode_paged`` does.  On equal logical
+content their ``out`` and ``delta`` are bit-identical with the contiguous
+variants'.
 
 A CPU tensor goes to the plain version; a CUDA tensor launches the kernels
 or raises.  ``ids`` (and ``cluster_of``) must index their banks.
@@ -50,13 +61,14 @@ from .flash_decode import (attention_launches, check_attention_args,
                            paged_launch_args, split_workspace,
                            workspace_args)
 
-# kernel launches since the last reset: two per call (three where the
-# cache holds more than one chunk)
+# kernel launches since the last reset: one per call (two where the cache
+# holds more than one chunk)
 LAUNCHES_LORA = 0
 LAUNCHES_JD = 0
 LAUNCHES_LORA_PAGED = 0  # the paged variants' launches, counted alike
 LAUNCHES_JD_PAGED = 0
 MAX_RANK = 128
+MAX_KV_HEADS = 16        # blocks in a thread-block cluster (the H100's limit)
 _ONES: Dict[Tuple, torch.Tensor] = {}
 
 
@@ -89,48 +101,47 @@ def _check_ids(name: str, t: torch.Tensor, n: int, device) -> None:
                          f"on {device}")
 
 
-def _attn_shrink(q, k, v, kv_len, ids, cluster_of, bank, bank_scale, r,
-                 dims, addr):
-    """The first launch: attention and the per-head shrink.  ``addr``:
-    ``flash_decode.contiguous_launch_args`` or ``paged_launch_args``.
-    Returns (out, partial (B, Kv, r) f32)."""
+def _check_kv_heads(kv_heads: int) -> None:
+    """The fused kernels sum a sequence's kv-heads in one cluster: at most
+    :data:`MAX_KV_HEADS`, on the CPU too, so both share one contract."""
+    if kv_heads > MAX_KV_HEADS:
+        raise ValueError(f"{kv_heads} kv heads: the fused decode kernels "
+                         f"take at most {MAX_KV_HEADS} (one thread-block "
+                         f"cluster of a sequence's kv heads)")
+
+
+def _launch(q, k, v, kv_len, ids, cluster_of, bank, bank_scale, sigma, w,
+            w_scale, r, dims, addr):
+    """The fused launch (the chunks' and the merge's where the cache is
+    split): attention, shrink through ``bank``, Sigma, expand through
+    ``w``.  ``addr``: ``flash_decode.contiguous_launch_args`` or
+    ``paged_launch_args``.  Returns (out, delta (B, d_out) f32)."""
     B, H, Kv, hd = dims
     S, k_sb, k_ss, v_sb, v_ss, (pt, n_blocks, page_t) = addr
+    d_out = w.shape[1]
     out = torch.empty_like(q)
-    partial = torch.empty((B, Kv, r), dtype=torch.float32, device=q.device)
+    delta = torch.empty((B, d_out), dtype=torch.float32, device=q.device)
     ws = split_workspace(B, Kv, H // Kv, hd, S, q.device)
-    err = _build.lib().fused_attn_shrink_launch(
+    err = _build.lib().fused_decode_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
         ids.data_ptr(), None if cluster_of is None else cluster_of.data_ptr(),
         bank.data_ptr(), _build.dtype_code(bank.dtype), bank_scale.data_ptr(),
-        r, out.data_ptr(), partial.data_ptr(), B, H, Kv, hd, S,
+        r, None if sigma is None else sigma.data_ptr(),
+        0 if sigma is None else _build.dtype_code(sigma.dtype),
+        int(sigma is not None and sigma.ndim == 3),
+        w.data_ptr(), _build.dtype_code(w.dtype), w_scale.data_ptr(), d_out,
+        delta.data_ptr(), out.data_ptr(), B, H, Kv, hd, S,
         k_sb, k_ss, v_sb, v_ss, hd ** -0.5,
         _build.dtype_code(q.dtype), _build.dtype_code(k.dtype),
         pt, n_blocks, page_t, *workspace_args(ws),
         _build.stream_ptr(q.device))
-    _build.check(err, "fused_attn_shrink")
-    return out, partial
-
-
-def _expand(partial, ids, cluster_of, sigma, w, w_scale, d_out):
-    B, Kv, r = partial.shape
-    delta = torch.empty((B, d_out), dtype=torch.float32,
-                        device=partial.device)
-    err = _build.lib().fused_expand_launch(
-        partial.data_ptr(), ids.data_ptr(),
-        None if cluster_of is None else cluster_of.data_ptr(),
-        None if sigma is None else sigma.data_ptr(),
-        0 if sigma is None else _build.dtype_code(sigma.dtype),
-        int(sigma is not None and sigma.ndim == 3),
-        w.data_ptr(), _build.dtype_code(w.dtype), w_scale.data_ptr(),
-        delta.data_ptr(), B, Kv, r, d_out, _build.stream_ptr(partial.device))
-    _build.check(err, "fused_expand")
-    return delta
+    _build.check(err, "fused_decode")
+    return out, delta
 
 
 def _lora(q, k, v, kv_len, ids, A, B, a_scale, b_scale, dims, addr):
     """Check the raw-LoRA operands (fp banks get scales of ones), then the
-    two launches; ``addr`` as :func:`_attn_shrink` takes it."""
+    launch; ``addr`` as :func:`_launch` takes it."""
     Bt, H, Kv, hd = dims
     n, r, d_attn = A.shape
     d_out = B.shape[1]
@@ -146,15 +157,14 @@ def _lora(q, k, v, kv_len, ids, A, B, a_scale, b_scale, dims, addr):
     _check_scale("a_scale", a_scale, (n, r, 1), dev)
     _check_scale("b_scale", b_scale, (n, d_out, 1), dev)
     _check_ids("ids", ids, Bt, dev)
-    out, partial = _attn_shrink(q, k, v, kv_len, ids, None, A, a_scale, r,
-                                dims, addr)
-    return out, _expand(partial, ids, None, None, B, b_scale, d_out)
+    return _launch(q, k, v, kv_len, ids, None, A, a_scale, None, B, b_scale,
+                   r, dims, addr)
 
 
 def _jd(q, k, v, kv_len, ids, U, V, sigma, cluster_of, u_scale, v_scale,
         dims, addr):
     """Check the compressed-basis operands (fp bases get scales of ones),
-    then the two launches."""
+    then the launch."""
     Bt, H, Kv, hd = dims
     kcl, d_attn, r = V.shape
     d_out = U.shape[1]
@@ -177,9 +187,8 @@ def _jd(q, k, v, kv_len, ids, U, V, sigma, cluster_of, u_scale, v_scale,
     _check_scale("v_scale", v_scale, (kcl, 1, r), dev)
     _check_ids("ids", ids, Bt, dev)
     _check_ids("cluster_of", cluster_of, n, dev)
-    out, partial = _attn_shrink(q, k, v, kv_len, ids, cluster_of, V, v_scale,
-                                r, dims, addr)
-    return out, _expand(partial, ids, cluster_of, sigma, U, u_scale, d_out)
+    return _launch(q, k, v, kv_len, ids, cluster_of, V, v_scale, sigma, U,
+                   u_scale, r, dims, addr)
 
 
 def fused_decode_lora(q, k, v, kv_len, ids, A, B,
@@ -193,13 +202,14 @@ def fused_decode_lora(q, k, v, kv_len, ids, A, B,
     Returns (out (B, H, hd), delta (B, d_out) f32), delta un-scaled by the
     LoRA ``scaling``."""
     global LAUNCHES_LORA
+    _check_kv_heads(k.shape[-2])
     if q.device.type == "cpu":
         return ref.fused_decode_lora_ref(q, k, v, kv_len, ids, A, B,
                                          a_scale, b_scale)
     dims = check_attention_args(q, k, v, kv_len)[:4]
     addr = contiguous_launch_args(k, v)
     res = _lora(q, k, v, kv_len, ids, A, B, a_scale, b_scale, dims, addr)
-    LAUNCHES_LORA += attention_launches(addr[0]) + 1
+    LAUNCHES_LORA += attention_launches(addr[0])
     return res
 
 
@@ -210,6 +220,7 @@ def fused_decode_lora_paged(q, k_pages, v_pages, page_table, kv_len, ids, A,
     Kv, hd) and page_table (B, n_blocks) int32, as ``flash_decode_paged``
     takes them."""
     global LAUNCHES_LORA_PAGED
+    _check_kv_heads(k_pages.shape[-2])
     if q.device.type == "cpu":
         return ref.fused_decode_lora_paged_ref(
             q, k_pages, v_pages, page_table, kv_len, ids, A, B, a_scale,
@@ -219,7 +230,7 @@ def fused_decode_lora_paged(q, k_pages, v_pages, page_table, kv_len, ids, A,
     addr = paged_launch_args(k_pages, v_pages, page_table, page_t, n_blocks)
     res = _lora(q, k_pages, v_pages, kv_len, ids, A, B, a_scale, b_scale,
                 dims, addr)
-    LAUNCHES_LORA_PAGED += attention_launches(addr[0]) + 1
+    LAUNCHES_LORA_PAGED += attention_launches(addr[0])
     return res
 
 
@@ -233,6 +244,7 @@ def fused_decode_jd(q, k, v, kv_len, ids, U, V, sigma, cluster_of,
     bf16 or f32; cluster_of: (n,) int32.  Returns (out (B, H, hd),
     delta (B, d_out) f32)."""
     global LAUNCHES_JD
+    _check_kv_heads(k.shape[-2])
     if q.device.type == "cpu":
         return ref.fused_decode_jd_ref(q, k, v, kv_len, ids, U, V, sigma,
                                        cluster_of, u_scale, v_scale)
@@ -240,7 +252,7 @@ def fused_decode_jd(q, k, v, kv_len, ids, U, V, sigma, cluster_of,
     addr = contiguous_launch_args(k, v)
     res = _jd(q, k, v, kv_len, ids, U, V, sigma, cluster_of, u_scale,
               v_scale, dims, addr)
-    LAUNCHES_JD += attention_launches(addr[0]) + 1
+    LAUNCHES_JD += attention_launches(addr[0])
     return res
 
 
@@ -251,6 +263,7 @@ def fused_decode_jd_paged(q, k_pages, v_pages, page_table, kv_len, ids, U, V,
     """:func:`fused_decode_jd` over a paged pool (the layout of
     :func:`fused_decode_lora_paged`)."""
     global LAUNCHES_JD_PAGED
+    _check_kv_heads(k_pages.shape[-2])
     if q.device.type == "cpu":
         return ref.fused_decode_jd_paged_ref(
             q, k_pages, v_pages, page_table, kv_len, ids, U, V, sigma,
@@ -260,5 +273,5 @@ def fused_decode_jd_paged(q, k_pages, v_pages, page_table, kv_len, ids, U, V,
     addr = paged_launch_args(k_pages, v_pages, page_table, page_t, n_blocks)
     res = _jd(q, k_pages, v_pages, kv_len, ids, U, V, sigma, cluster_of,
               u_scale, v_scale, dims, addr)
-    LAUNCHES_JD_PAGED += attention_launches(addr[0]) + 1
+    LAUNCHES_JD_PAGED += attention_launches(addr[0])
     return res

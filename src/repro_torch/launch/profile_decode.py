@@ -23,12 +23,11 @@ import torch
 from torch.autograd import DeviceType
 
 from ..configs import get_config, smoke_config
-from ..kernels.checks import (ATTN_KERNEL, DEQUANT_KERNEL, EXPAND_KERNEL,
-                              QUANT_KERNELS)
+from ..kernels.checks import ATTN_KERNEL, DEQUANT_KERNEL, QUANT_KERNELS
 from ..serving.request import Request
 from .serve import build_executor
 
-PORT_KERNELS = (ATTN_KERNEL, EXPAND_KERNEL, DEQUANT_KERNEL) + QUANT_KERNELS
+PORT_KERNELS = (ATTN_KERNEL, DEQUANT_KERNEL) + QUANT_KERNELS
 GEMM_WORDS = ("gemm", "gemv", "cutlass", "xmma", "nvjet", "splitk")
 
 

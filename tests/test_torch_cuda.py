@@ -69,7 +69,8 @@ def test_fused_lora_matches_plain(cuda, shape, quant):
                               quant)
     before = fu_mod.LAUNCHES_LORA
     checks.check_fused_lora(case, banks)
-    assert fu_mod.LAUNCHES_LORA == before + 2    # attention+shrink, expand
+    assert fu_mod.LAUNCHES_LORA == before + fd_mod.attention_launches(
+        case["k"].shape[1])            # attention, shrink and expand in one
 
 
 @pytest.mark.parametrize("quant", [False, True])
@@ -81,7 +82,86 @@ def test_fused_jd_matches_plain(cuda, quant, diag, kcl):
                             cuda, quant, diag)
     before = fu_mod.LAUNCHES_JD
     checks.check_fused_jd(case, banks)
-    assert fu_mod.LAUNCHES_JD == before + 2
+    assert fu_mod.LAUNCHES_JD == before + 1
+
+
+# the fused kernels' cluster over a sequence's kv heads: every Kv up to the
+# cluster limit, ranks that do and do not fill 16 bytes, d_out that is not
+# a multiple of Kv or of 4; each case runs every (rank, d_out) pair, one
+# chunk or several as the case's index picks
+CLUSTER_RANKS_DOUT = [(1, 256), (15, 4100), (16, 4096), (128, 5120)]
+
+
+@pytest.mark.parametrize("mode", ["lora", "jd_diag", "jd_full"])
+@pytest.mark.parametrize("bank", ["bf16", "f32", "int8"])
+@pytest.mark.parametrize("kv", [1, 2, 4, 8, 16])
+def test_fused_cluster_shapes(cuda, kv, bank, mode):
+    """out == flash_decode's, delta within DELTA_TOL of the plain version,
+    a repeat bit for bit, and one launch (two with several chunks)."""
+    gen = torch.Generator(device=cuda).manual_seed(kv * 31 + len(mode))
+    H, hd, n = 4 * kv, 64, 5
+    wdt = torch.float32 if bank == "f32" else torch.bfloat16
+    for i, (r, d_out) in enumerate(CLUSTER_RANKS_DOUT):
+        several = (i + kv) % 2 == 1
+        s_max, bucket, kv_len = ((600, 600, [600, 257, 1]) if several
+                                 else (160, 128, [128, 33, 1]))
+        case = checks.attention_case(3, H, kv, hd, s_max, bucket, kv_len,
+                                     torch.bfloat16, gen, cuda)
+        case["ids"] = torch.tensor([4, 0, 2], dtype=torch.int32,
+                                   device=cuda)
+        q, k, v, kl, ids = (case[x] for x in ("q", "k", "v", "kv_len",
+                                              "ids"))
+        if mode == "lora":
+            banks = checks.lora_banks(n, r, H * hd, d_out, wdt, gen, cuda,
+                                      bank == "int8")
+            check, fn, counter = checks.check_fused_lora, \
+                fu_mod.fused_decode_lora, "LAUNCHES_LORA"
+            args = (ids, banks["A"], banks["B"], banks["a_scale"],
+                    banks["b_scale"])
+        else:
+            banks = checks.jd_banks(2, n, r, H * hd, d_out, wdt, gen, cuda,
+                                    bank == "int8", mode == "jd_diag")
+            check, fn, counter = checks.check_fused_jd, \
+                fu_mod.fused_decode_jd, "LAUNCHES_JD"
+            args = (ids, banks["U"], banks["V"], banks["sigma"],
+                    banks["cluster_of"], banks["u_scale"], banks["v_scale"])
+        before = getattr(fu_mod, counter)
+        check(case, banks)
+        assert getattr(fu_mod, counter) == before + \
+            fd_mod.attention_launches(bucket)
+        for a, b in zip(fn(q, k, v, kl, *args), fn(q, k, v, kl, *args)):
+            assert torch.equal(a, b), (r, d_out, several)
+    torch.cuda.synchronize()
+
+
+def test_fused_refuses_kv_heads_past_the_cluster(cuda):
+    """Kv 32 raises ValueError before any launch, in all four modes."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    case = checks.attention_case(2, 64, 32, 64, 64, 64, [64, 9],
+                                 torch.bfloat16, gen, cuda)
+    ids = torch.tensor([0, 1], dtype=torch.int32, device=cuda)
+    pc = checks.paged_case(dict(case, ids=ids), 16, 2, gen)
+    lb = checks.lora_banks(2, 8, 64 * 64, 128, torch.bfloat16, gen, cuda,
+                           False)
+    jb = checks.jd_banks(1, 2, 8, 64 * 64, 128, torch.bfloat16, gen, cuda,
+                         False, True)
+    la = (ids, lb["A"], lb["B"])
+    ja = (ids, jb["U"], jb["V"], jb["sigma"], jb["cluster_of"])
+    cont = (case["q"], case["k"], case["v"], case["kv_len"])
+    paged = (case["q"], pc["k_pages"], pc["v_pages"], pc["page_table"],
+             case["kv_len"])
+    torch.cuda.synchronize()
+    before = (fu_mod.LAUNCHES_LORA, fu_mod.LAUNCHES_JD,
+              fu_mod.LAUNCHES_LORA_PAGED, fu_mod.LAUNCHES_JD_PAGED)
+    for fn, a in ((fu_mod.fused_decode_lora, cont + la),
+                  (fu_mod.fused_decode_jd, cont + ja),
+                  (fu_mod.fused_decode_lora_paged, paged + la),
+                  (fu_mod.fused_decode_jd_paged, paged + ja)):
+        with pytest.raises(ValueError, match="at most 16"):
+            fn(*a)
+    assert (fu_mod.LAUNCHES_LORA, fu_mod.LAUNCHES_JD,
+            fu_mod.LAUNCHES_LORA_PAGED, fu_mod.LAUNCHES_JD_PAGED) == before
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.float32])
@@ -552,8 +632,8 @@ PAGED_SHAPES = [  # B, H, Kv, hd, s_max, bucket, kv_len
 def test_paged_equals_contiguous_bitwise(cuda, shape, page_t, kv_dtype,
                                          quant):
     """All three paged variants against the contiguous kernels on the same
-    logical content: out, l, m, the shrink's partials and delta bit for
-    bit, over a permuted table in a pool with spare pages."""
+    logical content: out, l, m and delta bit for bit, over a permuted
+    table in a pool with spare pages."""
     gen = torch.Generator(device=cuda).manual_seed(page_t + len(shape))
     B, H, Kv, hd, s_max, bucket, kv_len = shape
     case = checks.attention_case(B, H, Kv, hd, s_max, bucket, kv_len,
@@ -573,23 +653,16 @@ def test_paged_equals_contiguous_bitwise(cuda, shape, page_t, kv_dtype,
     checks.check_fused_jd_paged(pc, jb)
     n = fd_mod.attention_launches(pc["page_table"].shape[1] * page_t)
     assert (fd_mod.LAUNCHES_PAGED, fu_mod.LAUNCHES_LORA_PAGED,
-            fu_mod.LAUNCHES_JD_PAGED) == (before[0] + n, before[1] + n + 1,
-                                          before[2] + n + 1)
-    # the first launch's partials, paged against contiguous
-    from repro_torch.kernels.flash_decode import (contiguous_launch_args,
-                                                  paged_launch_args)
-    dims = (B, H, Kv, hd)
-    a_scale = lb["a_scale"] if quant else torch.ones(
-        (5, 16, 1), device=cuda)
-    common = (pc["kv_len"], pc["ids"], None, lb["A"], a_scale, 16, dims)
-    _, p_part = fu_mod._attn_shrink(
-        pc["q"], pc["k_pages"], pc["v_pages"], *common,
-        paged_launch_args(pc["k_pages"], pc["v_pages"], pc["page_table"],
-                          page_t, pc["page_table"].shape[1]))
-    _, c_part = fu_mod._attn_shrink(
-        pc["q"], pc["k_logical"], pc["v_logical"], *common,
-        contiguous_launch_args(pc["k_logical"], pc["v_logical"]))
-    assert torch.equal(p_part, c_part)
+            fu_mod.LAUNCHES_JD_PAGED) == (before[0] + n, before[1] + n,
+                                          before[2] + n)
+    # the delta, paged against contiguous (the partials stay in the kernel)
+    la = (pc["ids"], lb["A"], lb["B"], lb["a_scale"], lb["b_scale"])
+    _, p_delta = fu_mod.fused_decode_lora_paged(
+        pc["q"], pc["k_pages"], pc["v_pages"], pc["page_table"],
+        pc["kv_len"], *la)
+    _, c_delta = fu_mod.fused_decode_lora(
+        pc["q"], pc["k_logical"], pc["v_logical"], pc["kv_len"], *la)
+    assert torch.equal(p_delta, c_delta)
     torch.cuda.synchronize()
 
 
