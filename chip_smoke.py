@@ -120,6 +120,25 @@ Phases (any failure ends the script with a non-zero exit code):
    deepseek-moe-16b, mamba2-2.7b and zamba2-2.7b (529 prompt tokens:
    three SSD chunks, the last padded), whisper-small over 1500 frames,
    and pixtral-12b after 1024 patches.
+10. lazy: mistral-7b at full width and depth (lora adapters on q/k/v,
+   unfused, batch 8, a 2048-token cache, prompts of 1024-2039 tokens).
+   (a) executors with ``decode_attn`` "gather" and "lazy" on one set of
+   weights (at 1/sqrt(fan-in)) in lockstep for 8 steps, the lazy one
+   starting each step from gather's cache, in f32 (weights and cache;
+   the plain two-part version on the card beside the kernel path) and in
+   bf16: logits within ``LZ_F32_ATOL`` / ``LZ_BF16_ATOL``, tokens equal
+   where gather's top-2 margin exceeds the tolerance, the rows a step
+   does not write and layer 0's new row bit for bit, f32 new rows within
+   1e-5 of their magnitude; the two-part attention's kernel path held to
+   its plain version on a prefilled layer and timed (with its launches a
+   call); then each branch's host ms a step and, from one profile, its
+   device ms, launches and idle share, row 1's count zeroed before each
+   (gather must launch none, lazy 2 a layer a step).  (b) a one-rank
+   NCCL group: ``seq_sharded_decode_step`` against ``flash_decode`` and
+   the cache write, ``_moe_ep`` under a (1, 1) mesh at granite-moe's
+   layer width against the plain dispatch/combine bit for bit (and, with
+   room for every token, against ``_moe_dense``), and ``compressed_psum``
+   over a one-rank axis as the identity.
 
 The last lines are the kernel names, the card's name and power limit, one
 JSON object with each kernel's numbers, and the ok line.
@@ -1656,6 +1675,340 @@ def phase_families(dev, rows) -> dict:
     return launches
 
 
+# phase 10: the lazy decode branch at mistral-7b's full width and depth
+LZ_S_MAX, LZ_STEPS, LZ_PROFILE_STEPS = 2048, 8, 4
+# prompts of 1024-2039 tokens: the longest reaches position 2047 after the
+# 8 steps, so no write is clamped at the cache's end
+LZ_PROMPTS = [1024 + 145 * i for i in range(MAX_BATCH)]
+# f32 logits, lazy against gather at 32 layers: the port's f32 logits
+# tolerance against the JAX package (tests/test_torch_model.py); the
+# parity phase's 2e-5 (2 layers) is missed at this depth by the rounding
+# of any two f32 attention sums (the plain two-part version against
+# gather is printed beside the kernel path)
+LZ_F32_ATOL = 1e-4
+# bf16 logits, lazy against gather at 32 layers (weights at 1/sqrt(fan-in):
+# the reference's init amplifies bf16 rounding, queue 3): pixtral-12b's
+# bf16 bound of phase 9 (c), the dense family's; tokens are compared where
+# gather's top-2 margin exceeds it
+LZ_BF16_ATOL = 0.5
+
+
+def _lazy_executors(dev, dtype):
+    """Two executors over one set of mistral-7b weights (32 layers, lora
+    adapters on q/k/v, unfused), ``decode_attn`` "gather" and "lazy", each
+    prefilled with the same 8 prompts into a 2048-token cache of
+    ``dtype``, weights drawn at 1/sqrt(fan-in)."""
+    import dataclasses as dc
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.launch.families import fan_in_defs
+    from repro_torch.launch.serve import make_bundles
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.param import init_params, tree_map
+    from repro_torch.serving.real_executor import RealModelExecutor
+    from repro_torch.serving.request import Request
+    cfg = get_config("mistral-7b")
+    g = torch.Generator(device=dev)
+    g.manual_seed(10)
+    defs = tf.model_defs(cfg)
+    params = init_params(fan_in_defs(defs), g, dev, dtype_override=dtype)
+    bundles = tree_map(lambda t: t.to(dtype) if t.is_floating_point()
+                       else t, make_bundles(cfg, N_ADAPTERS, "lora",
+                                            "unfused", 11, dev))
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in LZ_PROMPTS]
+    exs = {}
+    for branch in ("gather", "lazy"):
+        e = RealModelExecutor(dc.replace(cfg, decode_attn=branch), params,
+                              bundles, "lora", MAX_BATCH, LZ_S_MAX,
+                              decode_path="unfused", device=dev)
+        e.cache = {k: v.to(dtype) if torch.is_tensor(v) else v
+                   for k, v in e.cache.items()}
+        for rid, prompt in enumerate(prompts):
+            e.prefill_request(Request(rid=rid, adapter_id=rid % N_ADAPTERS,
+                                      prompt_len=len(prompt),
+                                      max_new_tokens=4 * LZ_STEPS), prompt)
+        exs[branch] = e
+    return cfg, exs
+
+
+def _lazy_lockstep(exs, dtype) -> dict:
+    """LZ_STEPS steps of both branches, the lazy executor starting each
+    step from the gather executor's cache and both fed gather's tokens:
+    rows the step does not write equal bit for bit, layer 0's new row bit
+    for bit (its input is the same), the other layers' new rows (after
+    attention computed two ways) in f32 within a rounding of their
+    magnitude (in bf16 their difference is printed); logits and tokens
+    compared."""
+    g_ex, l_ex = exs["gather"], exs["lazy"]
+    out = dict(max_abs_dlogit=0.0, new_row_max_rel=0.0,
+               new_row_elems_differing=0, new_row_elems=0,
+               tokens_compared=0, tokens_equal=0, min_margin_compared=None)
+    f32 = dtype == torch.float32
+    row_tol = 1e-5 if f32 else None
+    for _ in range(LZ_STEPS):
+        idx = g_ex.cache["index"]
+        for key in ("k", "v"):
+            l_ex.cache[key].copy_(g_ex.cache[key])
+        l_ex.cache["index"] = idx
+        before = {key: g_ex.cache[key] for key in ("k", "v")}
+        lg = g_ex.decode_logits()[:, -1].float()
+        ll = l_ex.decode_logits()[:, -1].float()
+        assert bool(torch.isfinite(ll).all())
+        out["max_abs_dlogit"] = max(out["max_abs_dlogit"],
+                                    float((lg - ll).abs().max()))
+        top = torch.topk(lg, 2, dim=-1).values
+        margin = top[:, 0] - top[:, 1]
+        sure = margin > (LZ_F32_ATOL if f32 else LZ_BF16_ATOL)
+        out["tokens_compared"] += int(sure.sum())
+        out["tokens_equal"] += int((lg.argmax(-1) == ll.argmax(-1))[sure]
+                                   .sum())
+        if bool(sure.any()):
+            m = float(margin[sure].min())
+            out["min_margin_compared"] = m if out["min_margin_compared"] \
+                is None else min(out["min_margin_compared"], m)
+        for key in ("k", "v"):
+            gk, lk = g_ex.cache[key], l_ex.cache[key]
+            others = torch.ones(LZ_S_MAX, dtype=torch.bool, device=gk.device)
+            others[idx] = False
+            assert torch.equal(lk[:, :, others], before[key][:, :, others]), \
+                f"lazy changed {key} rows it does not write"
+            assert torch.equal(gk[:, :, others], before[key][:, :, others])
+            assert torch.equal(lk[0, :, idx], gk[0, :, idx]), \
+                f"layer 0's new {key} row differs"
+            d = (lk[:, :, idx].float() - gk[:, :, idx].float()).abs()
+            scale = gk[:, :, idx].float().abs().amax()
+            out["new_row_max_rel"] = max(out["new_row_max_rel"],
+                                         float(d.max() / scale))
+            out["new_row_elems_differing"] += int((d > 0).sum())
+            out["new_row_elems"] += d.numel()
+        nxt = lg.argmax(-1).cpu().numpy()
+        for e in (g_ex, l_ex):
+            e.slot_tokens[:] = nxt
+    out["new_row_tol"] = row_tol
+    out["logit_tol"] = LZ_F32_ATOL if f32 else LZ_BF16_ATOL
+    return out
+
+
+def _check_lockstep(r) -> None:
+    assert r["max_abs_dlogit"] < r["logit_tol"], r
+    assert r["new_row_tol"] is None or \
+        r["new_row_max_rel"] <= r["new_row_tol"], r
+    assert r["tokens_equal"] == r["tokens_compared"] > 0, r
+
+
+def lazy_kernel_row(dev, ex) -> dict:
+    """The kernel path of the two-part attention against its plain
+    version on one layer's prefilled cache (bf16), and both timed."""
+    from repro_torch.kernels import checks
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.models import layers
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    cfg = ex.cfg
+    hd = cfg.resolved_head_dim
+    ck, cv = ex.cache["k"][5], ex.cache["v"][5]
+    idx = ex.cache["index"]
+    q = torch.randn((MAX_BATCH, 1, cfg.num_heads, hd), generator=gen,
+                    device=dev).to(ck.dtype)
+    kn, vn = (torch.randn((MAX_BATCH, 1, cfg.num_kv_heads, hd),
+                          generator=gen, device=dev).to(ck.dtype)
+              for _ in range(2))
+    args = (q, ck, cv, kn, vn, idx)
+    got = layers.two_part_decode_attention(*args)
+    want = layers._two_part_decode_attention(*args)
+    err = checks._assert_close("two-part attention", got, want,
+                               checks._out_tol(want))
+    launches = checks.kernel_launches(
+        lambda: layers.two_part_decode_attention(*args), iters=4)
+    per_call = {k: v // 4 for k, v in launches.items()}
+    nbytes = 2 * MAX_BATCH * idx * cfg.num_kv_heads * hd * ck.element_size()
+    return dict(shape=dict(B=MAX_BATCH, H=cfg.num_heads, Kv=cfg.num_kv_heads,
+                           hd=hd, S=LZ_S_MAX, kv_len=idx),
+                max_abs_err=err,
+                ms=checks.cuda_ms(lambda: layers.two_part_decode_attention(
+                    *args), iters=50),
+                flash_decode_ms=checks.cuda_ms(
+                    lambda: flash_decode(
+                        q[:, 0].float().contiguous(), ck, cv,
+                        torch.full((MAX_BATCH,), idx, dtype=torch.int32,
+                                   device=dev)), iters=50),
+                flash_decode_device_ms=checks.device_ms(
+                    lambda: layers.two_part_decode_attention(*args),
+                    [checks.ATTN_KERNEL]),
+                plain_ms=checks.cuda_ms(
+                    lambda: layers._two_part_decode_attention(*args),
+                    iters=10),
+                bound_ms=checks.bound_ms(nbytes, 0)[0],
+                launches_per_call=sum(per_call.values()),
+                kernels_per_call=per_call)
+
+
+def phase_lazy(dev) -> dict:
+    """Phase 10 (a): lazy against gather; returns row 1's launches on the
+    lazy branch's readings run."""
+    from repro_torch.kernels import flash_decode
+    from repro_torch.launch.profile_decode import profile_steps
+    from repro_torch.models import layers
+    t_phase = time.perf_counter()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True).stdout.strip().splitlines()[0]
+    # f32 weights and cache: the branches' logits within the parity
+    # phase's tolerance
+    torch.zeros((), device=dev)             # the allocator, if not yet
+    _free(dev)
+    cfg, exs = _lazy_executors(dev, torch.float32)
+    start = {k: v.clone() for k, v in exs["gather"].cache.items()
+             if torch.is_tensor(v)}
+    index, tokens = exs["gather"].cache["index"], \
+        exs["gather"].slot_tokens.copy()
+    kernel_path = layers.two_part_decode_attention
+    for name in ("kernel path", "plain two-part"):
+        for k, v in start.items():
+            exs["gather"].cache[k].copy_(v)
+        exs["gather"].cache["index"] = index
+        for e in exs.values():
+            e.slot_tokens[:] = tokens
+        if name == "plain two-part":
+            layers.two_part_decode_attention = \
+                layers._two_part_decode_attention
+        try:
+            r = _lazy_lockstep(exs, torch.float32)
+        finally:
+            layers.two_part_decode_attention = kernel_path
+        log(f"[lazy] (a) f32 lockstep, lazy ({name}) against gather, "
+            f"{LZ_STEPS} steps: {json.dumps(r)}")
+        _check_lockstep(r)
+    del exs, start
+    # bf16 weights and cache, as served: tokens, then the readings
+    _free(dev)
+    cfg, exs = _lazy_executors(dev, torch.bfloat16)
+    snap = {k: v.clone() for k, v in exs["gather"].cache.items()
+            if torch.is_tensor(v)}
+    index, tokens = exs["gather"].cache["index"], exs["gather"].slot_tokens
+    tokens = tokens.copy()
+    r = _lazy_lockstep(exs, torch.bfloat16)
+    log(f"[lazy] (a) bf16 lockstep, {LZ_STEPS} steps: {json.dumps(r)} "
+        f"(tokens compared where gather's top-2 margin > the logit tol)")
+    _check_lockstep(r)
+    row = lazy_kernel_row(dev, exs["lazy"])
+    log(f"[lazy] (a) two-part attention, kernel path against plain: "
+        f"{json.dumps(row)}")
+    readings = {}
+    launches = {}
+    for branch, e in exs.items():
+        for k, v in snap.items():
+            e.cache[k].copy_(v)
+        e.cache["index"], e._host_len = index, index
+        e.slot_tokens[:] = tokens
+        flash_decode.LAUNCHES = 0
+        readings[branch] = profile_steps(e, LZ_PROFILE_STEPS)
+        launches[branch] = flash_decode.LAUNCHES
+        readings[branch]["top_kernels"] = readings[branch]["top_kernels"][:4]
+        readings[branch]["card"] = smi
+        log(f"[lazy] (a) {branch} readings (B {MAX_BATCH}, s_max "
+            f"{LZ_S_MAX}, kv_len {index}+): {json.dumps(readings[branch])}")
+    log(f"[lazy] (a) flash_decode launches: {json.dumps(launches)}")
+    assert launches["gather"] == 0 and launches["lazy"] > 0, launches
+    steps = 2 * LZ_PROFILE_STEPS + 1
+    assert launches["lazy"] == steps * cfg.num_layers * 2, launches
+    del exs, snap
+    _free(dev)
+    phase_lazy_one_rank(dev, smi)
+    log(f"[lazy] phase {time.perf_counter() - t_phase:.1f} s")
+    return {"flash_decode": launches["lazy"]}
+
+
+def phase_lazy_one_rank(dev, smi) -> None:
+    """Phase 10 (b): the multi-device code on a one-rank NCCL group."""
+    import dataclasses as dc
+    import socket
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import collectives, grad_compression
+    from repro_torch.distributed import sharding as tsh
+    from repro_torch.kernels import checks, flash_decode
+    from repro_torch.launch.mesh import device_mesh, make_mesh
+    from repro_torch.models import moe
+    from repro_torch.models.param import init_params
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0, device_id=dev)
+    try:
+        mesh = device_mesh(make_mesh((1, 1), ("data", "model")))
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(14)
+        cfg = get_config("mistral-7b")
+        hd, H, Kv = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device=dev).to(
+                torch.bfloat16)
+        ck, cv = rnd(MAX_BATCH, LZ_S_MAX, Kv, hd), rnd(MAX_BATCH, LZ_S_MAX,
+                                                       Kv, hd)
+        q, kn, vn = rnd(MAX_BATCH, 1, H, hd), rnd(MAX_BATCH, 1, Kv, hd), \
+            rnd(MAX_BATCH, 1, Kv, hd)
+        idx = torch.tensor(LZ_PROMPTS, dtype=torch.int32, device=dev)
+        rows = torch.arange(MAX_BATCH, device=dev)
+        wk, wv = ck.clone(), cv.clone()
+        wk[rows, idx.long()] = kn[:, 0]
+        wv[rows, idx.long()] = vn[:, 0]
+        want = flash_decode.flash_decode(q[:, 0].contiguous(), wk, wv,
+                                         idx + 1)[0]
+        out, k2, v2 = collectives.seq_sharded_decode_step(
+            q, ck.clone(), cv.clone(), kn, vn, idx, mesh)
+        assert torch.equal(k2, wk) and torch.equal(v2, wv)
+        err = checks._assert_close("seq_sharded_decode_step", out[:, 0],
+                                   want, checks._out_tol(want))
+        log(f"[lazy] (b) seq_sharded_decode_step on a one-rank NCCL group "
+            f"== flash_decode + the cache write (B {MAX_BATCH}, S "
+            f"{LZ_S_MAX}, H {H}, Kv {Kv}, bf16): cache bit for bit, out "
+            f"max |d| {err:.3e} (bf16 tol 2^-7 |ref| + 1e-5)")
+        # _moe_ep at granite-moe-3b-a800m's layer width under (1, 1)
+        gcfg = get_config("granite-moe-3b-a800m")
+        p = init_params(moe.moe_defs(gcfg), gen, dev,
+                        dtype_override=torch.float32)
+        x = torch.randn((8, 512, gcfg.d_model), generator=gen, device=dev)
+        xt = x.reshape(-1, gcfg.d_model)
+        topw, topi, _ = moe._route(p, xt, gcfg)
+        with tsh.use_mesh(mesh):
+            y, _ = moe.moe_fwd(p, x, gcfg)
+        m = gcfg.moe
+        cap = max(int(xt.shape[0] * m.top_k / m.num_experts
+                      * m.capacity_factor) + 1, 4)
+        buf, eid, slot, valid = moe._dispatch(xt, topi, cap, m.num_experts)
+        plain = moe._combine(moe._expert_ffn(buf, p["w_gate"], p["w_up"],
+                                             p["w_down"]), eid, slot, valid,
+                             topw)
+        assert torch.equal(y.reshape(-1, gcfg.d_model), plain)
+        dropped = int((~valid).sum())
+        wide = dc.replace(gcfg, moe=dc.replace(
+            m, capacity_factor=m.num_experts / m.top_k))    # room for all
+        with tsh.use_mesh(mesh):
+            y_wide, _ = moe.moe_fwd(p, x, wide)
+        dense = moe._moe_dense(p, xt, topw, topi, gcfg)
+        d_err = checks._assert_close("_moe_ep (no drops) vs _moe_dense",
+                                     y_wide.reshape(-1, gcfg.d_model), dense,
+                                     1e-4 * (1 + dense.abs()))
+        log(f"[lazy] (b) _moe_ep under a (1, 1) mesh at granite-moe's layer "
+            f"width (E {m.num_experts}, top-{m.top_k}, d {gcfg.d_model}, "
+            f"8 x 512 tokens, f32) == the plain dispatch/combine bit for "
+            f"bit ({dropped} of {valid.numel()} choices dropped at capacity "
+            f"{cap}); with capacity for all, vs _moe_dense max |d| "
+            f"{d_err:.3e}")
+        g = rnd(4096, 16).float()
+        assert grad_compression.compressed_psum(g, "data", mesh) is g
+        log(f"[lazy] (b) compressed_psum over a one-rank axis is the "
+            f"identity; card {smi}")
+    finally:
+        dist.destroy_process_group()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1682,6 +2035,9 @@ def main() -> int:
     phase_train(dev)
     by_path["families"] = phase_families(dev, rows)
     for name, n in by_path["families"].items():
+        launches[name] += n
+    by_path["lazy"] = phase_lazy(dev)
+    for name, n in by_path["lazy"].items():
         launches[name] += n
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -98,7 +98,7 @@ class ModelConfig:
     scan_layers: bool = True
     logits_chunk_vocab: int = 0     # >0: chunked cross-entropy over vocab
     # perf-iteration knobs (baseline values; see EXPERIMENTS.md §Perf)
-    decode_attn: str = "gather"     # gather | seq_shard (flash-decode merge)
+    decode_attn: str = "gather"     # gather | seq_shard | lazy (two-part)
     attn_cp_fallback: bool = False  # context-parallel attn when heads % tp != 0
     grad_cast_bf16: bool = False    # cast layer-boundary cotangents to bf16
 

@@ -15,7 +15,9 @@ bf16 arrives as ``ml_dtypes.bfloat16``, which ``torch.from_numpy``
 refuses; it crosses as its raw 16 bits (``view(np.int16)``) and is
 re-viewed as ``torch.bfloat16`` on the other side, which is exact.
 :func:`to_numpy` brings a tree of tensors back for comparison with the
-JAX package's results.
+JAX package's results.  :func:`to_rank` carries a tree across to one rank
+of a mesh: each leaf's block under its sharding (``launch/shardings.py``),
+so a rank receives only its shard of the arrays JAX drew.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ import torch
 from .core.cluster import ClusteredJD
 from .core.collection import LoRABank, ServingAdapterBundle
 from .core.jd import JDResult
+from .distributed.sharding import local_block
 from .models.ssm import SSMCache
 
 
@@ -55,6 +58,20 @@ def to_numpy(tree):
     if isinstance(tree, dict):
         return {k: to_numpy(v) for k, v in tree.items()}
     return tensor_to_array(tree)
+
+
+def to_rank(tree, shardings, coords, device="cpu"):
+    """Nested dict of arrays (or tensors) -> this rank's shards as tensors
+    on ``device``: each leaf's block under the ``NamedSharding`` at the
+    same place of ``shardings``, for the rank at ``coords`` (its index
+    along each mesh axis, ``Mesh.coordinates()``)."""
+    if isinstance(tree, dict):
+        return {k: to_rank(v, shardings[k], coords, device)
+                for k, v in tree.items()}
+    block = local_block(tree.shape, shardings.spec, shardings.mesh, coords)
+    if isinstance(tree, torch.Tensor):
+        return tree[block].contiguous().to(device)
+    return array_to_tensor(np.asarray(tree)[block], device)
 
 
 def tensor_to_array(t: torch.Tensor) -> np.ndarray:

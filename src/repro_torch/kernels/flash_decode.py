@@ -21,7 +21,10 @@ zeros).
 
 A CPU tensor goes to the plain version (``ref.flash_decode_ref``,
 ``ref.flash_decode_paged_ref``); a CUDA tensor launches the kernel or
-raises.  ``kv_len`` must be >= 1 per row.
+raises.  ``kv_len`` must be >= 1 per row for the plain version; the
+kernel gives a row of ``kv_len`` 0 ``out`` 0, ``l`` 0 and ``m`` -1e30 (a
+rank's empty slice in ``distributed/collectives.py``, whose CPU path is
+its own ``_partial_decode``).
 """
 from __future__ import annotations
 
@@ -192,17 +195,18 @@ def contiguous_launch_args(k, v):
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 kv_len: torch.Tensor):
-    """q: (B, H, hd); k/v: (B, S, Kv, hd); kv_len: (B,) int32.
+                 kv_len: torch.Tensor, scale=None):
+    """q: (B, H, hd); k/v: (B, S, Kv, hd); kv_len: (B,) int32; the logits
+    ``q . k`` times ``scale`` (default hd^-0.5).
 
     Returns (out (B, H, hd) in q's dtype, l (B, Kv, G, 1) f32,
     m (B, Kv, G, 1) f32), as the JAX function does."""
     global LAUNCHES
     if q.device.type == "cpu":
-        return ref.flash_decode_ref(q, k, v, kv_len)
+        return ref.flash_decode_ref(q, k, v, kv_len, scale)
     dims = check_attention_args(q, k, v, kv_len)[:4]
     addr = contiguous_launch_args(k, v)
-    res = _launch(q, k, v, kv_len, dims, addr, "flash_decode")
+    res = _launch(q, k, v, kv_len, dims, addr, "flash_decode", scale)
     LAUNCHES += attention_launches(addr[0])
     return res
 
@@ -227,7 +231,7 @@ def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
     return res
 
 
-def _launch(q, k, v, kv_len, dims, addr, name):
+def _launch(q, k, v, kv_len, dims, addr, name, scale=None):
     """The kernel without an epilogue (and its merge where the cache holds
     more than one chunk); ``addr`` from :func:`contiguous_launch_args` or
     :func:`paged_launch_args`."""
@@ -241,7 +245,7 @@ def _launch(q, k, v, kv_len, dims, addr, name):
     err = _build.lib().flash_decode_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
         out.data_ptr(), l.data_ptr(), m.data_ptr(), B, H, Kv, hd, S,
-        k_sb, k_ss, v_sb, v_ss, hd ** -0.5,
+        k_sb, k_ss, v_sb, v_ss, hd ** -0.5 if scale is None else scale,
         _build.dtype_code(q.dtype), _build.dtype_code(k.dtype),
         pt, n_blocks, page_t, *workspace_args(ws),
         _build.stream_ptr(q.device))

@@ -18,12 +18,14 @@ NEG_INF = -1e30
 QMAX = {8: 127, 4: 7}
 
 
-def _attend(q, k, v, kv_len):
-    """Decode attention in f32: (out (B, H, hd) f32, l, m)."""
+def _attend(q, k, v, kv_len, scale=None):
+    """Decode attention in f32: (out (B, H, hd) f32, l, m); the logits
+    scaled by ``scale`` (default hd^-0.5)."""
     B, H, hd = q.shape
     S, Kv = k.shape[1], k.shape[2]
     G = H // Kv
-    qf = q.reshape(B, Kv, G, hd).float() * (hd ** -0.5)
+    qf = q.reshape(B, Kv, G, hd).float() * (
+        hd ** -0.5 if scale is None else scale)
     logits = torch.einsum("bkgh,bskh->bkgs", qf, k.float())
     if kv_len is not None:
         mask = (torch.arange(S, device=q.device)[None, :]
@@ -38,14 +40,15 @@ def _attend(q, k, v, kv_len):
 
 
 def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     kv_len: Optional[torch.Tensor] = None
+                     kv_len: Optional[torch.Tensor] = None,
+                     scale: Optional[float] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Decode attention.  q: (B, H, hd); k/v: (B, S, Kv, hd); kv_len (B,).
 
     Returns (out (B, H, hd) in q's dtype, l (B, Kv, G, 1) f32,
     m (B, Kv, G, 1) f32): the softmax denominator and running max, as
     ``flash_decode`` returns them for a cross-shard merge."""
-    out, l, m = _attend(q, k, v, kv_len)
+    out, l, m = _attend(q, k, v, kv_len, scale)
     return out.to(q.dtype), l, m
 
 

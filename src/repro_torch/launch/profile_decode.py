@@ -50,6 +50,17 @@ def profile_decode(cfg, mode: str, decode_path: str, n_adapters: int = 16,
         ex.prefill_request(Request(rid=rid, adapter_id=rid % n_adapters,
                                    prompt_len=prompt_len,
                                    max_new_tokens=2 * steps + 2), prompt)
+    return {"mode": mode, "decode_path": decode_path,
+            "layers": cfg.num_layers, "d_model": cfg.d_model,
+            "batch": max_batch, "steps": steps,
+            **profile_steps(ex, steps, trace)}
+
+
+def profile_steps(ex, steps: int, trace: str = "") -> dict:
+    """Host ms a decode step of a prefilled executor ``ex`` (timed without
+    the profiler, after a warm-up step), then from ``torch.profiler`` over
+    as many steps: device ms, idle share and launches a step, device ms by
+    group and the top kernels (the device entries None on the CPU)."""
     ex.decode_step_real()                                 # warm-up
     t0 = time.perf_counter()
     for _ in range(steps):
@@ -76,8 +87,6 @@ def profile_decode(cfg, mode: str, decode_path: str, n_adapters: int = 16,
         groups[_group(name)] = groups.get(_group(name), 0.0) + ms
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:10]
     return {
-        "mode": mode, "decode_path": decode_path, "layers": cfg.num_layers,
-        "d_model": cfg.d_model, "batch": max_batch, "steps": steps,
         "device": (torch.cuda.get_device_name(ex.device) if cuda else "cpu"),
         "host_ms_per_step": step_ms,
         "device_ms_per_step": dev_ms if cuda else None,

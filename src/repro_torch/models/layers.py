@@ -4,10 +4,18 @@ cross attention, SwiGLU MLP, embeddings, logits and the memory-safe
 cross-entropy.
 
 Plain functions on tensors; parameters are nested dicts of tensors in the
-JAX package's layouts (``wq (d, H, hd)``, ``wo (H, hd, d)``, ...).  The
-lazy decode branch and the mesh constraints of the JAX module are not
-ported yet; its sequence-sharded branch needs a mesh, and on one device it
-is the gather path (:func:`attention_fwd`).
+JAX package's layouts (``wq (d, H, hd)``, ``wo (H, hd, d)``, ...).
+
+Decode attention takes one of three branches (``cfg.decode_attn``, under
+the JAX module's conditions, :func:`attention_fwd`): ``gather`` writes the
+new token into a copy of the layer's cache and attends over it;
+``lazy`` attends over the old cache and the new token as a two-part
+softmax and returns only the new token's K/V, which the caller splices
+into the stacked cache once a step (``transformer.forward``);
+``seq_shard`` runs ``distributed/collectives.py``'s sequence-sharded
+step under a mesh whose model axis the KV heads do not divide, and the
+gather branch otherwise.  The model code runs replicated over a mesh: the
+JAX module's sharding constraints have no counterpart here.
 """
 from __future__ import annotations
 
@@ -15,6 +23,9 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from ..distributed import collectives
+from ..distributed.sharding import current_mesh
+from ..kernels.flash_decode import flash_decode
 from . import lora as lora_mod
 from .param import ParamDef
 
@@ -200,6 +211,61 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return torch.stack(outs, dim=1).reshape(B, Sq, H, hd).to(q.dtype)
 
 
+def _two_part_decode_attention(q, cache_k, cache_v, k_new, v_new, idx):
+    """Decode attention over (old cache) + (current token) without writing
+    the cache first, as the JAX function computes it (the plain version).
+    q/k_new/v_new: (B,1,H|Kv,hd); cache: (B,S,Kv,hd); idx: the old cache's
+    length, an int or (B,)."""
+    B, _, H, hd = q.shape
+    S, Kv = cache_k.shape[1], cache_k.shape[2]
+    G = H // Kv
+    dev = q.device
+    qg = (q[:, 0].reshape(B, Kv, G, hd) * _scale_like(q, hd ** -0.5)).float()
+    logits_c = torch.einsum("bkgh,bskh->bkgs", qg, cache_k.float())
+    kl = collectives.lengths(idx, B, dev)
+    valid = (torch.arange(S, device=dev)[None, :] < kl[:, None])[:, None,
+                                                                  None, :]
+    logits_c = torch.where(valid, logits_c, torch.tensor(NEG_INF, device=dev))
+    logit_s = torch.einsum("bkgh,bkh->bkg", qg,
+                           k_new[:, 0].float())[..., None]
+    m = torch.maximum(logits_c.amax(-1, keepdim=True), logit_s)
+    w_c = torch.where(valid, torch.exp(logits_c - m),
+                      torch.zeros((), device=dev))
+    w_s = torch.exp(logit_s - m)
+    denom = w_c.sum(-1, keepdim=True) + w_s
+    out = torch.einsum("bkgs,bskh->bkgh", w_c, cache_v.float())
+    out = out + w_s * v_new[:, 0].float().reshape(B, Kv, 1, hd)
+    out = out / torch.clamp(denom, min=1e-30)
+    return out.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def two_part_decode_attention(q, cache_k, cache_v, k_new, v_new, idx):
+    """:func:`_two_part_decode_attention`; on a CUDA tensor the old cache
+    goes through ``flash_decode`` (``csrc/decode_attention.cu``, reading
+    the cache once in its own dtype) with the query scaled as the JAX
+    function scales it (in q's dtype, then f32) and the kernel's scale 1,
+    and the new token joins through the kernel's ``(l, m)``: with ``m' =
+    max(m, s)``, ``w_c = exp(m - m') * l`` and ``w_s = exp(s - m')``, out
+    = ``(w_c * out_c + w_s * v_new) / (w_c + w_s)``."""
+    if not q.is_cuda:
+        return _two_part_decode_attention(q, cache_k, cache_v, k_new,
+                                          v_new, idx)
+    B, _, H, hd = q.shape
+    Kv = cache_k.shape[2]
+    G = H // Kv
+    kl = collectives.lengths(idx, B, q.device)
+    qs = (q[:, 0] * _scale_like(q, hd ** -0.5)).float().contiguous()
+    out_c, l, m = flash_decode(qs, cache_k, cache_v, kl, scale=1.0)
+    s = torch.einsum("bkgh,bkh->bkg", qs.reshape(B, Kv, G, hd),
+                     k_new[:, 0].float())[..., None]
+    m2 = torch.maximum(m, s)
+    w_c = torch.exp(m - m2) * l
+    w_s = torch.exp(s - m2)
+    out = (w_c * out_c.reshape(B, Kv, G, hd)
+           + w_s * v_new[:, 0].float().reshape(B, Kv, 1, hd)) / (w_c + w_s)
+    return out.reshape(B, 1, H, hd).to(q.dtype)
+
+
 def attention_fwd(p: Dict, x: torch.Tensor, cfg, *,
                   positions: torch.Tensor,
                   mode: str = "prefill",   # train | prefill | decode
@@ -211,17 +277,15 @@ def attention_fwd(p: Dict, x: torch.Tensor, cfg, *,
     within x and takes no cache (``new_cache`` is None); prefill writes the
     prompt at position 0 and attends within it; decode writes the new
     token at ``index`` and attends over ``[0, index + S)``.  Neither
-    mutates ``cache``."""
+    mutates ``cache``.  Decode of one token under ``cfg.decode_attn ==
+    "lazy"`` returns as ``new_cache`` only the new token's K/V
+    ``(B, 1, Kv, hd)``; under ``"seq_shard"`` with a mesh whose model axis
+    the KV heads do not divide, ``cache`` is this rank's slice of the
+    sequence (``collectives.seq_sharded_decode_step``)."""
     B, S, _ = x.shape
     if cfg.decode_attn not in ("gather", "seq_shard", "lazy"):
         raise ValueError(f"decode_attn {cfg.decode_attn!r}: the configs know "
-                         f"'gather' and 'seq_shard'")
-    if cfg.decode_attn == "lazy" and mode == "decode" and S == 1:
-        raise NotImplementedError(
-            "decode_attn 'lazy' (a two-part softmax that returns only the new "
-            "token's K/V) is not ported: ROADMAP queue 1, item 7")
-    # "seq_shard" runs the gather path: the JAX package takes its seq-shard
-    # branch only with a mesh and tp > 1, and the port runs on one device
+                         f"'gather', 'seq_shard' and 'lazy'")
     hd = cfg.resolved_head_dim
     q, k, v = _qkv(p, x, cfg, lora_ctx)
     cos, sin = rope_tables(positions, hd, cfg.rope_theta)
@@ -240,6 +304,23 @@ def attention_fwd(p: Dict, x: torch.Tensor, cfg, *,
         keys, vals, kv_len, q_offset = k, v, None, 0   # within prompt only
     elif mode == "decode":
         idx = int(cache["index"])
+        mesh = current_mesh()
+        tp = mesh.shape.get("model", 1) if mesh is not None else 1
+        if (cfg.decode_attn == "seq_shard" and S == 1 and tp > 1
+                and cfg.num_kv_heads % tp != 0):
+            # the JAX condition: the cache is S-sharded over the model
+            # axis; update + attention on the rank's slice (the copies
+            # keep the caller's cache unmutated, as the gather branch does)
+            out, keys, vals = collectives.seq_sharded_decode_step(
+                q, cache["k"].clone(), cache["v"].clone(), k, v, idx, mesh)
+            return _out_proj(p, out, lora_ctx), {"k": keys, "v": vals,
+                                                 "index": idx + S}
+        if cfg.decode_attn == "lazy" and S == 1:
+            out = two_part_decode_attention(q, cache["k"], cache["v"], k, v,
+                                            idx)
+            return _out_proj(p, out, lora_ctx), {
+                "k": k.to(cache["k"].dtype), "v": v.to(cache["v"].dtype),
+                "index": idx + S}
         # a write past the end lands on the last S slots, as XLA's
         # dynamic_update_slice clamps its start index
         w = min(idx, cache["k"].shape[1] - S)
@@ -263,10 +344,16 @@ def attention_fwd(p: Dict, x: torch.Tensor, cfg, *,
         out = naive_attention(q, keys, vals, causal=causal,
                               q_offset=q_offset, kv_len=kv_len,
                               sliding_window=cfg.sliding_window)
+    return _out_proj(p, out, lora_ctx), new_cache
+
+
+def _out_proj(p: Dict, out: torch.Tensor, lora_ctx) -> torch.Tensor:
+    """(B, S, H, hd) attention output through ``wo`` and the o adapter."""
+    B, S = out.shape[:2]
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
     if lora_ctx is not None:
         y = lora_mod.apply(lora_ctx, "o", out.reshape(B, S, -1), y)
-    return y, new_cache
+    return y
 
 
 def cross_attention_fwd(p: Dict, x: torch.Tensor, memory: torch.Tensor, cfg,

@@ -2,15 +2,16 @@
 plus routed top-k experts.
 
 - :func:`_moe_dense`: every expert processes every token, masked combine.
-  It is the JAX module's one-device path of ``moe_fwd`` and the one the
-  port runs (compute is O(E) per token).
-- :func:`_dispatch` / :func:`_combine` / :func:`_expert_ffn`: the
-  static-capacity dispatch of the expert-parallel path as one-device
-  functions, with the JAX module's trash bucket, trash slot and
-  ``bucket_offset`` window.  The expert-parallel path itself (``_moe_ep``:
-  ``shard_map`` over a mesh's model axis plus a ``psum``) waits for the
-  multi-device port (ROADMAP queue 1, item 7); :func:`moe_fwd` refuses to
-  run under a process group of more than one rank.
+  It is the JAX module's one-device path of ``moe_fwd``, taken without a
+  mesh (compute is O(E) per token).
+- :func:`_moe_ep`: the expert-parallel path, taken under a mesh with a
+  ``model`` axis (of any size, as in JAX).  Each rank dispatches its
+  tokens to its own experts (or, where the model axis does not divide the
+  experts, to its slice of every expert's ``expert_ff``) with
+  :func:`_dispatch` / :func:`_expert_ffn` / :func:`_combine` (the JAX
+  module's static capacity, trash bucket, trash slot and
+  ``bucket_offset`` window), and a sum all-reduce over ``model`` adds the
+  ranks' parts.
 
 Token dropping follows the static-capacity discipline (``capacity_factor``
 in the config); dropped tokens fall through on the residual.
@@ -23,6 +24,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..distributed.sharding import current_mesh
 from .layers import mlp_defs, mlp_fwd
 from .param import ParamDef
 
@@ -144,23 +146,67 @@ def _expert_ffn(buf: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     return torch.einsum("ecf,efd->ecd", h, w_down)
 
 
-def _refuse_multi_device() -> None:
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized() \
-            and dist.get_world_size() > 1:
-        raise NotImplementedError(
-            "expert-parallel MoE (the JAX module's _moe_ep over a mesh) is "
-            "not ported: ROADMAP queue 1, item 7")
+def _local(w: torch.Tensor, dim: int, full: int, n_loc: int,
+           r: int) -> torch.Tensor:
+    """Rank ``r``'s slice of ``n_loc`` along ``dim`` of a weight that is
+    either whole (``full`` there) or already the rank's shard."""
+    if w.shape[dim] == n_loc:
+        return w
+    if w.shape[dim] != full:
+        raise ValueError(f"expert weight {tuple(w.shape)}: dim {dim} is "
+                         f"neither {full} nor the shard's {n_loc}")
+    return w.narrow(dim, r * n_loc, n_loc)
+
+
+def _moe_ep(p: Dict, x: torch.Tensor, topw: torch.Tensor,
+            topi: torch.Tensor, cfg, mesh) -> torch.Tensor:
+    """Expert-parallel MoE: each rank's experts (or ``expert_ff`` slice)
+    on this rank's tokens, then a sum all-reduce over the model axis.
+
+    ``x``/``topw``/``topi`` are this rank's tokens (its share of the
+    batch over the mesh's other axes, replicated over ``model``); the
+    expert weights are whole or already this rank's shard
+    (``launch/shardings.py``).  The capacity is the JAX module's, from
+    the tokens a rank holds."""
+    m = cfg.moe
+    E = m.num_experts
+    M = mesh.shape.get("model", 1)
+    expert_sharded = (E % M == 0) and M > 1
+    E_loc = E // M if expert_sharded else E
+    T_loc = max(x.shape[0], 1)
+    capacity = max(int(T_loc * m.top_k / E * m.capacity_factor) + 1, 4)
+    r = mesh.coordinate("model") if M > 1 else 0
+    wg, wu, wd = p["w_gate"], p["w_up"], p["w_down"]
+    if expert_sharded:
+        wg, wu, wd = (_local(w, 0, E, E_loc, r) for w in (wg, wu, wd))
+        offset = r * E_loc
+    else:
+        f = m.d_ff_expert
+        if f % M:
+            raise ValueError(f"expert_ff {f} does not split over {M} ranks")
+        wg, wu = (_local(w, 2, f, f // M, r) for w in (wg, wu))
+        wd = _local(wd, 1, f, f // M, r)
+        offset = 0
+    buf, eid, slot, valid = _dispatch(x, topi, capacity, E_loc, offset)
+    y_buf = _expert_ffn(buf, wg, wu, wd)
+    y = _combine(y_buf, eid, slot, valid, topw)
+    if M > 1:
+        torch.distributed.all_reduce(y, group=mesh.group("model"))
+    return y
 
 
 def moe_fwd(p: Dict, x: torch.Tensor, cfg
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full MoE layer on (B, S, d).  Returns (y, aux_loss)."""
-    _refuse_multi_device()
     B, S, d = x.shape
     xt = x.reshape(B * S, d)
     topw, topi, aux = _route(p, xt, cfg)
-    y = _moe_dense(p, xt, topw, topi, cfg).reshape(B, S, d)
+    mesh = current_mesh()
+    if mesh is not None and "model" in mesh.axis_names:
+        y = _moe_ep(p, xt, topw, topi, cfg, mesh)
+    else:
+        y = _moe_dense(p, xt, topw, topi, cfg)
+    y = y.reshape(B, S, d)
     if cfg.moe.num_shared:
         y = y + mlp_fwd(p["shared"], x)
     return y, aux

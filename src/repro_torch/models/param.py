@@ -1,7 +1,10 @@
 """Minimal parameter-definition system (the port of ``models/param.py``).
 
-Models are defined as nested dicts of :class:`ParamDef`; :func:`init_params`
-materializes the tree into tensors on one device.  Layouts are the JAX
+Models are defined as nested dicts of :class:`ParamDef`; the same tree
+yields (1) tensors on one device (:func:`init_params`), (2) partition specs
+through the logical-axis rules (:func:`param_specs`), (3) tensors on the
+``meta`` device for allocation-free shape checks (:func:`abstract_params`)
+and (4) parameter counts (:func:`count_defs`).  Layouts are the JAX
 package's, so weights carry across with a plain copy (``convert.py``).
 """
 from __future__ import annotations
@@ -11,6 +14,8 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+
+from ..distributed.sharding import NamedSharding, spec_for
 
 # the most elements drawn in one piece by init_params (2^28: 1 GiB of f32)
 DRAW_PIECE = 1 << 28
@@ -90,6 +95,38 @@ def init_params(defs, generator: torch.Generator, device,
 
     walk(defs, out)
     return out
+
+
+def abstract_params(defs, dtype_override=None):
+    """The tree as tensors on the ``meta`` device: shapes and dtypes, no
+    storage."""
+    return tree_map(lambda d: torch.empty(d.shape,
+                                          dtype=dtype_override or d.dtype,
+                                          device="meta"), defs)
+
+
+def param_specs(defs, mesh=None):
+    """Partition-spec tree resolved against a mesh (the current one by
+    default)."""
+    return tree_map(lambda d: spec_for(d.shape, d.axes, mesh), defs)
+
+
+def param_shardings(defs, mesh):
+    return tree_map(lambda d: NamedSharding(mesh, spec_for(d.shape, d.axes,
+                                                           mesh)), defs)
+
+
+def count_defs(defs) -> int:
+    """Parameters in a ParamDef tree, as a Python integer (the JAX
+    module's ``count_params`` counts in int32 and overflows past 2^31;
+    it is not ported)."""
+    total = 0
+    for d in tree_leaves(defs):
+        n = 1
+        for s in d.shape:
+            n *= s
+        total += n
+    return total
 
 
 def stacked(defs: Dict, n: int, axis_name: Optional[str] = "layers"):

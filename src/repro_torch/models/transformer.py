@@ -13,7 +13,9 @@ and its input passes the bf16 gradient boundary when
 
 Caches are dicts of stacked tensors plus ``"index"``, one scalar shared
 by all slots, kept as a Python int so that no step has to read it back
-from the device:
+from the device (a decode step under ``cfg.decode_attn == "lazy"`` writes
+every layer's new token into the caller's stacked cache in place, once a
+step; every other step leaves the caller's cache as it was):
 
 - dense, vlm, moe: ``k``, ``v`` (L, B, S_max, Kv, hd);
 - ssm: ``conv`` (L, B, d_conv-1, W) and ``state`` (L, B, H, N, P) f32;
@@ -280,9 +282,13 @@ def forward(params: Dict, cfg, *, tokens: Optional[torch.Tensor] = None,
             lora_ctx_proto: Optional[lora_mod.LoRAContext] = None
             ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
     """Run the model in ``train``, ``prefill`` or ``decode`` mode.  Returns
-    (hidden (B, S, d), new_cache, aux_loss); ``cache`` is not mutated,
-    and train mode takes none and returns None.  ``aux_loss`` is the MoE
-    layers' mean load-balancing loss, 0 for the other families.
+    (hidden (B, S, d), new_cache, aux_loss); train mode takes no cache and
+    returns None.  ``cache`` is not mutated, except by a lazy decode step
+    (``cfg.decode_attn == "lazy"``, one token, the dense and vlm
+    families), which writes the step's new K/V rows into ``cache["k"]``
+    and ``cache["v"]`` at ``index`` in place and returns them in
+    ``new_cache``.  ``aux_loss`` is the MoE layers' mean load-balancing
+    loss, 0 for the other families.
 
     ``patches`` (vlm: (B, P, d) embeddings put before the tokens) and
     ``frames`` (audio: (B, F, d) encoder input) are the stub front ends'
@@ -293,6 +299,14 @@ def forward(params: Dict, cfg, *, tokens: Optional[torch.Tensor] = None,
         raise ValueError(mode)
     if mode != "train" and cache is None:
         raise ValueError(f"{mode} needs a cache")
+    lazy = (mode == "decode" and cfg.decode_attn == "lazy"
+            and tokens.shape[1] == 1 and cfg.family != "ssm")
+    if lazy and cfg.family not in ("dense", "vlm"):
+        raise ValueError(
+            f"decode_attn 'lazy' on the {cfg.family} family: the JAX "
+            f"package's {cfg.family} stack assigns each layer's output as the "
+            f"whole cache, which under 'lazy' holds only the new token, so "
+            f"the cache loses its history (ROADMAP queue 3); use 'gather'")
     lp = lora_params or {}
     if cfg.family == "audio":
         return _forward_audio(params, cfg, tokens=tokens, frames=frames,
@@ -376,6 +390,12 @@ def forward(params: Dict, cfg, *, tokens: Optional[torch.Tensor] = None,
     if mode == "train":
         return x, None, aux
     new_cache = dict(cache)
+    if lazy:
+        # each layer's new token into the stacked cache, once a step; the
+        # write lands past every position this step's attention read
+        w = min(index, cache["k"].shape[2] - 1)
+        for key in ("k", "v"):
+            cache[key][:, :, w:w + 1] = torch.stack(new.pop(key))
     for key, leaves in new.items():
         if cfg.family == "hybrid" and key in ("conv", "state"):
             # (groups * period) layers back to (groups, period, ...)
@@ -491,6 +511,11 @@ def prefill(params: Dict, batch: Dict, cfg, cache: Dict,
 
 def decode_step(params: Dict, tokens: torch.Tensor, cfg, cache: Dict,
                 lora_params=None, lora_ctx_proto=None):
+    """One decode step: (logits (B, S, Vp), new_cache).  Under
+    ``cfg.decode_attn == "lazy"`` (dense and vlm) the new token's K/V go
+    into ``cache`` in place, with no per-layer copy of the cache, and
+    ``new_cache`` holds the same tensors: a caller that keeps the old
+    cache clones it first (the executor replaces its cache anyway)."""
     h, new_cache, _ = forward(params, cfg, tokens=tokens, mode="decode",
                               cache=cache, lora_params=lora_params,
                               lora_ctx_proto=lora_ctx_proto)

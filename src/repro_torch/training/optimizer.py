@@ -7,8 +7,9 @@ enters the arithmetic as an f32 tensor on the parameters' device, as JAX
 rounds a Python scalar to the array's f32: a Python float in a torch op
 may be applied otherwise (CUDA divides by a scalar as a multiply by its
 reciprocal), and the schedule and bias corrections are computed in f32
-from the int32 count, never in Python's f64.  The sharding helpers of the
-JAX module wait for the port's multi-device code.
+from the int32 count, never in Python's f64.  :func:`abstract_opt_state`
+gives the state as ``meta`` tensors and :func:`opt_state_specs` its
+partition specs, which mirror the parameters'.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ from typing import Any, Dict
 
 import torch
 
+from ..distributed.sharding import P
 from ..models.param import tree_leaves, tree_map
 
 
@@ -63,6 +65,30 @@ def init_opt_state(params) -> Dict[str, Any]:
         "nu": tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                              device=p.device), params),
         "count": torch.zeros((), dtype=torch.int32, device=leaf.device),
+    }
+
+
+def abstract_opt_state(params_struct) -> Dict[str, Any]:
+    """The state of a parameter tree (of tensors, meta or not) as ``meta``
+    tensors: f32 ``master``/``mu``/``nu`` and an int32 ``count``."""
+    def f32(p):
+        return torch.empty(p.shape, dtype=torch.float32, device="meta")
+
+    return {
+        "master": tree_map(f32, params_struct),
+        "mu": tree_map(f32, params_struct),
+        "nu": tree_map(f32, params_struct),
+        "count": torch.empty((), dtype=torch.int32, device="meta"),
+    }
+
+
+def opt_state_specs(param_spec_tree) -> Dict[str, Any]:
+    """Optimizer-state partition specs mirror the parameters'."""
+    return {
+        "master": param_spec_tree,
+        "mu": param_spec_tree,
+        "nu": param_spec_tree,
+        "count": P(),
     }
 
 

@@ -14,6 +14,8 @@ from repro.models import moe as jmoe
 from repro.models.param import init_params as jax_init
 from repro_torch import configs as tcfg
 from repro_torch.convert import to_torch
+from repro_torch.distributed.sharding import use_mesh
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import moe as tmoe
 
 # f32; the two frameworks sum the expert products in other orders, on
@@ -150,14 +152,33 @@ def test_moe_dense_matches_manual():
 
 
 def test_moe_fwd_refuses_a_process_group(monkeypatch):
-    """The expert-parallel path (a mesh's model axis in JAX) is not
-    ported: under more than one rank moe_fwd raises."""
+    """A process group alone does not change moe_fwd's path: without a
+    mesh it runs the dense path under any world size (as the JAX module
+    does without a mesh); under a mesh with a model axis it runs the
+    expert-parallel path, which on a (1, 1) mesh is the plain
+    dispatch/combine, and which refuses expert weights that are neither
+    whole nor this rank's shard."""
     _, cfg, _, tp, x = _setup("granite-moe-3b-a800m")
     dist = torch.distributed
     monkeypatch.setattr(dist, "is_initialized", lambda: True)
     monkeypatch.setattr(dist, "get_world_size", lambda *a: 2)
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        tmoe.moe_fwd(tp, torch.from_numpy(x)[None], cfg)
+    xt = torch.from_numpy(x)
+    w, i, _ = tmoe._route(tp, xt, cfg)
+    y, _ = tmoe.moe_fwd(tp, xt[None], cfg)
+    assert torch.equal(y[0], tmoe._moe_dense(tp, xt, w, i, cfg))
+    m = cfg.moe
+    cap = max(int(xt.shape[0] * m.top_k / m.num_experts
+                  * m.capacity_factor) + 1, 4)
+    buf, eid, slot, valid = tmoe._dispatch(xt, i, cap, m.num_experts)
+    plain = tmoe._combine(tmoe._expert_ffn(buf, tp["w_gate"], tp["w_up"],
+                                           tp["w_down"]), eid, slot, valid, w)
+    one = make_mesh((1, 1), ("data", "model"))
+    with use_mesh(one):
+        y1, _ = tmoe.moe_fwd(tp, xt[None], cfg)
+        assert torch.equal(y1[0], plain)
+        with pytest.raises(ValueError, match="neither"):
+            tmoe.moe_fwd(dict(tp, w_gate=tp["w_gate"][:, :, :5]), xt[None],
+                         cfg)
 
 
 def test_record_routes_logs_choices_and_margins():

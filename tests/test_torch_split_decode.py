@@ -164,13 +164,29 @@ def test_seq_shard_decodes_as_the_jax_package_on_one_device(f32_params):
 
 
 def test_lazy_decode_raises_and_unknown_values_are_refused(f32_params):
+    """"lazy" decodes the dense family as its gather branch does (logits
+    within the f32 tolerance; tests/test_torch_lazy.py holds it to JAX),
+    raises on a family whose JAX stack loses the cache's history under it,
+    and an unknown value is refused."""
     _, tp = f32_params
-    tokens = np.zeros((2, 4), np.int32)
+    tokens = np.random.default_rng(5).integers(0, 64, (2, 4)).astype(
+        np.int32)
     _, cfg = _cfgs("lazy")
+    _, gcfg = _cfgs("gather")
     _, cache = _prefill(cfg, tp, tokens)     # prefill has no lazy branch
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        ttf.decode_step(tp, torch.zeros((2, 1), dtype=torch.int32), cfg,
-                        cache)
+    nxt = torch.zeros((2, 1), dtype=torch.int32)
+    g_logits, _ = ttf.decode_step(tp, nxt, gcfg, cache)
+    l_logits, l_cache = ttf.decode_step(tp, nxt, cfg,
+                                        {**cache, "k": cache["k"].clone(),
+                                         "v": cache["v"].clone()})
+    np.testing.assert_allclose(l_logits.numpy(), g_logits.numpy(), rtol=0,
+                               atol=F32_TOL)
+    assert l_cache["index"] == 5
+    moe = dc.replace(tcfg.smoke_config("granite-moe-3b-a800m"),
+                     decode_attn="lazy")
+    with pytest.raises(ValueError, match="lazy"):
+        ttf.forward({}, moe, tokens=nxt, mode="decode",
+                    cache=ttf.init_cache(moe, 2, 8, device="cpu"))
     _, bad = _cfgs("ring")
     with pytest.raises(ValueError, match="decode_attn"):
         _prefill(bad, tp, tokens)
