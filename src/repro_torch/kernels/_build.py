@@ -141,6 +141,15 @@ def lib():
     return _LIB
 
 
+def refuse_meta(name: str, *tensors) -> None:
+    """Raise ``ValueError`` naming the wrapper ``name`` where one of
+    ``tensors`` is on ``meta``: a dry run reaches ``flash_decode``'s meta
+    branch only, and no meta pointer reaches a launch."""
+    if any(t is not None and t.device.type == "meta" for t in tensors):
+        raise ValueError(f"{name}: a meta tensor; the dry run has no "
+                         f"counterpart of this kernel")
+
+
 def check(err: int, name: str) -> None:
     """Raise when a C entry point reports a CUDA error."""
     if err != 0:

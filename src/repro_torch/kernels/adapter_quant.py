@@ -67,6 +67,7 @@ def adapter_quantize(w: torch.Tensor, *, axis: int = -1):
     if w.ndim < 2:
         raise ValueError("adapter_quantize expects a bank of matrices")
     axis = _norm_axis(w.ndim, axis)
+    _build.refuse_meta("adapter_quantize", w)
     if w.device.type == "cpu":
         return ref.adapter_quant_ref(w, axis=axis)
     if not w.is_cuda or not w.is_contiguous():
@@ -95,6 +96,7 @@ def adapter_dequantize(q: torch.Tensor, scale: torch.Tensor, *,
     once to ``out_dtype`` (f32 or bf16).  The reduction axis is read from
     the keepdims position of ``scale``: ``(..., R, 1)`` or ``(..., 1, C)``.
     Equal to the plain version bit for bit."""
+    _build.refuse_meta("adapter_dequantize", q, scale)
     return adapter_dequantize_group([(q, scale)], out_dtype=out_dtype)[0]
 
 
@@ -136,6 +138,8 @@ def adapter_dequantize_group(pairs: Sequence[Tuple[torch.Tensor,
     card."""
     global LAUNCHES_DEQUANT
     pairs = list(pairs)
+    _build.refuse_meta("adapter_dequantize_group",
+                       *[t for p in pairs for t in p])
     cuda = [t.device for p in pairs for t in p if t.device.type != "cpu"]
     if not cuda:
         return [ref.adapter_dequant_ref(q, s, out_dtype) for q, s in pairs]

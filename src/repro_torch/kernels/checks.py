@@ -64,9 +64,8 @@ from .fused_decode import (fused_decode_jd, fused_decode_jd_paged,
 from .jd_apply import jd_shrink_scale
 from .kv_quant import ERROR_BOUND, kv_dequantize, kv_quantize
 from .sgmv import sgmv_expand, sgmv_shrink, sigma_bmm
-
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA's data sheet
-F32_FLOPS = 67e12                # H100 SXM f32 outside the tensor cores
+# the H100 SXM data sheet's HBM rate and f32 rate outside the tensor cores
+from ..launch.roofline import F32_FLOPS, HBM_BW as HBM_BYTES_PER_S
 # the __global__ functions of csrc/, as the profiler names them; the
 # attention prefix names both decode_attn_kernel and, where the cache holds
 # more than one chunk, decode_attn_merge_kernel (the fused kernels too:

@@ -21,15 +21,19 @@ zeros).
 
 A CPU tensor goes to the plain version (``ref.flash_decode_ref``,
 ``ref.flash_decode_paged_ref``); a CUDA tensor launches the kernel or
-raises.  ``kv_len`` must be >= 1 per row for the plain version; the
-kernel gives a row of ``kv_len`` 0 ``out`` 0, ``l`` 0 and ``m`` -1e30 (a
-rank's empty slice in ``distributed/collectives.py``, whose CPU path is
-its own ``_partial_decode``).
+raises.  A ``meta`` q makes :func:`flash_decode` return the kernel's
+outputs as meta tensors and record the call for a dry run
+(``launch/op_cost.py``); the paged wrapper refuses it.  ``kv_len`` must
+be >= 1 per row for the plain version; the kernel gives a row of
+``kv_len`` 0 ``out`` 0, ``l`` 0 and ``m`` -1e30 (a rank's empty slice in
+``distributed/collectives.py``, whose CPU path is its own
+``_partial_decode``).
 """
 from __future__ import annotations
 
 import torch
 
+from ..launch import op_cost
 from . import _build
 from . import ref
 
@@ -204,11 +208,56 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     global LAUNCHES
     if q.device.type == "cpu":
         return ref.flash_decode_ref(q, k, v, kv_len, scale)
+    if q.device.type == "meta":
+        return _meta_outputs(q, k, v, kv_len)
     dims = check_attention_args(q, k, v, kv_len)[:4]
     addr = contiguous_launch_args(k, v)
-    res = _launch(q, k, v, kv_len, dims, addr, "flash_decode", scale)
+    with op_cost.port_kernel("flash_decode", attention_launches(addr[0]),
+                             lambda: _cost(q, k, kv_len)):
+        res = _launch(q, k, v, kv_len, dims, addr, "flash_decode", scale)
     LAUNCHES += attention_launches(addr[0])
     return res
+
+
+def _cost(q, k, kv_len):
+    """(bytes, flops) of one call: ``checks.attention_bytes`` and
+    ``attention_flops``, the kernel bound's own arithmetic, on the valid
+    rows (``kv_len`` read to the host)."""
+    from . import checks
+    case = {"q": q, "k": k, "kv_len": kv_len.cpu()}
+    return checks.attention_bytes(case), checks.attention_flops(case)
+
+
+def _meta_outputs(q, k, v, kv_len):
+    """:func:`flash_decode` on ``meta`` q/k/v (a dry run): the kernel's
+    outputs (out, l, m) and its split workspace as meta tensors, after the
+    kernel's own shape checks; the call is recorded as the launches the
+    card would make (``launch/op_cost.py``).  ``kv_len`` stays on the host
+    (a meta tensor holds no lengths): its valid rows are what the card's
+    call would read.  Nothing is launched and the count does not move."""
+    if q.ndim != 3 or k.ndim != 4 or k.shape != v.shape or \
+            k.shape[0] != q.shape[0] or k.shape[3] != q.shape[2]:
+        raise ValueError(f"flash_decode: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    if k.device.type != "meta" or v.device.type != "meta" or \
+            kv_len.device.type != "cpu" or kv_len.dtype != torch.int32 or \
+            kv_len.shape != (q.shape[0],):
+        raise ValueError("flash_decode on meta: q/k/v on meta, kv_len a "
+                         "(B,) int32 tensor on the host")
+    B, H, hd = q.shape
+    Kv = k.shape[2]
+    if H % Kv or hd > MAX_HEAD_DIM or \
+            attn_smem_bytes(H // Kv, hd, k.element_size()) > MAX_SMEM:
+        raise ValueError(f"flash_decode: {H} heads over {Kv} kv heads of "
+                         f"{hd} do not fit the kernel")
+    G = H // Kv
+    with op_cost.port_kernel("flash_decode", attention_launches(k.shape[1]),
+                             lambda: _cost(q, k, kv_len)):
+        split_workspace(B, Kv, G, hd, k.shape[1], q.device)
+        out = torch.empty_like(q)
+        l = torch.empty((B, Kv, G, 1), dtype=torch.float32, device="meta")
+        m = torch.empty((B, Kv, G, 1), dtype=torch.float32, device="meta")
+    return out, l, m
 
 
 def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
@@ -222,6 +271,7 @@ def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
     if q.device.type == "cpu":
         return ref.flash_decode_paged_ref(q, k_pages, v_pages, page_table,
                                           kv_len)
+    _build.refuse_meta("flash_decode_paged", q, k_pages, v_pages)
     *dims, page_t, n_blocks = check_paged_args(q, k_pages, v_pages,
                                                page_table, kv_len)
     addr = paged_launch_args(k_pages, v_pages, page_table, page_t, n_blocks)

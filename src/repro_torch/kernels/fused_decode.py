@@ -203,6 +203,7 @@ def fused_decode_lora(q, k, v, kv_len, ids, A, B,
     LoRA ``scaling``."""
     global LAUNCHES_LORA
     _check_kv_heads(k.shape[-2])
+    _build.refuse_meta("fused_decode_lora", q, k, v, A, B)
     if q.device.type == "cpu":
         return ref.fused_decode_lora_ref(q, k, v, kv_len, ids, A, B,
                                          a_scale, b_scale)
@@ -221,6 +222,7 @@ def fused_decode_lora_paged(q, k_pages, v_pages, page_table, kv_len, ids, A,
     takes them."""
     global LAUNCHES_LORA_PAGED
     _check_kv_heads(k_pages.shape[-2])
+    _build.refuse_meta("fused_decode_lora_paged", q, k_pages, v_pages, A, B)
     if q.device.type == "cpu":
         return ref.fused_decode_lora_paged_ref(
             q, k_pages, v_pages, page_table, kv_len, ids, A, B, a_scale,
@@ -245,6 +247,7 @@ def fused_decode_jd(q, k, v, kv_len, ids, U, V, sigma, cluster_of,
     delta (B, d_out) f32)."""
     global LAUNCHES_JD
     _check_kv_heads(k.shape[-2])
+    _build.refuse_meta("fused_decode_jd", q, k, v, U, V, sigma)
     if q.device.type == "cpu":
         return ref.fused_decode_jd_ref(q, k, v, kv_len, ids, U, V, sigma,
                                        cluster_of, u_scale, v_scale)
@@ -264,6 +267,8 @@ def fused_decode_jd_paged(q, k_pages, v_pages, page_table, kv_len, ids, U, V,
     :func:`fused_decode_lora_paged`)."""
     global LAUNCHES_JD_PAGED
     _check_kv_heads(k_pages.shape[-2])
+    _build.refuse_meta("fused_decode_jd_paged", q, k_pages, v_pages, U, V,
+                       sigma)
     if q.device.type == "cpu":
         return ref.fused_decode_jd_paged_ref(
             q, k_pages, v_pages, page_table, kv_len, ids, U, V, sigma,

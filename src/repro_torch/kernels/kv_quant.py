@@ -63,6 +63,7 @@ def kv_quantize(x: torch.Tensor, bits: int = 8):
     T, C = x.shape
     if bits == 4 and T % 2:
         raise ValueError("int4 packing needs an even token count")
+    _build.refuse_meta("kv_quantize", x)
     if x.device.type == "cpu":
         q, scales = ref.kv_quant_ref(x, bits)
         return (q if bits == 8 else ref.pack_int4(q)), scales
@@ -97,6 +98,7 @@ def kv_dequantize(packed: torch.Tensor, scales: torch.Tensor, bits: int = 8,
         raise TypeError(f"{bits}-bit values are {want}, got {packed.dtype}")
     if tuple(scales.shape) != (1, C) or scales.dtype != torch.float32:
         raise ValueError(f"scales must be (1, {C}) f32")
+    _build.refuse_meta("kv_dequantize", packed, scales)
     if packed.device.type == "cpu":
         q = packed if bits == 8 else ref.unpack_int4(packed)
         return ref.kv_dequant_ref(q, scales, out_dtype)

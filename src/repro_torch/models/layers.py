@@ -113,11 +113,19 @@ def _qkv(p: Dict, x: torch.Tensor, cfg, lora_ctx):
     return q, k, v
 
 
+def _index_tensor(x, device) -> torch.Tensor:
+    """An int (as an int64 scalar, by ``torch.full``: see
+    :func:`_scale_like`) or a tensor of positions, on ``device``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    return torch.full((), x, dtype=torch.int64, device=device)
+
+
 def _attn_mask(B: int, Sq: int, Skv: int, device, *, causal: bool,
                q_offset, kv_len, sliding_window: int) -> torch.Tensor:
     """(B|1, Sq, Skv) bool mask of the positions a query may attend."""
     kpos = torch.arange(Skv, device=device)
-    q_off = torch.as_tensor(q_offset, device=device)
+    q_off = _index_tensor(q_offset, device)
     if q_off.ndim == 0:
         qp = (torch.arange(Sq, device=device) + q_off)[None]    # (1, Sq)
         mask = torch.ones((1, Sq, Skv), dtype=torch.bool, device=device)
@@ -129,7 +137,7 @@ def _attn_mask(B: int, Sq: int, Skv: int, device, *, causal: bool,
     if sliding_window:
         mask = mask & (kpos[None, None, :] > qp[:, :, None] - sliding_window)
     if kv_len is not None:
-        kl = torch.as_tensor(kv_len, device=device)
+        kl = _index_tensor(kv_len, device)
         kl = kl[:, None, None] if kl.ndim == 1 else kl
         mask = mask & (kpos[None, None, :] < kl)
     return mask
@@ -137,8 +145,11 @@ def _attn_mask(B: int, Sq: int, Skv: int, device, *, causal: bool,
 
 def _scale_like(x: torch.Tensor, c: float) -> torch.Tensor:
     """A Python scalar as JAX multiplies it into ``x``: weakly typed, so
-    rounded to x's dtype first (torch would keep it at f32 precision)."""
-    return torch.tensor(c, dtype=x.dtype, device=x.device)
+    rounded to x's dtype first (torch would keep it at f32 precision).
+    Made by ``torch.full``, as the model's other constants, so that a dry
+    run on ``meta`` sees the same op as the card (``torch.tensor`` goes
+    another way on meta)."""
+    return torch.full((), c, dtype=x.dtype, device=x.device)
 
 
 def naive_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -154,7 +165,7 @@ def naive_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       q_offset=q_offset, kv_len=kv_len,
                       sliding_window=sliding_window)
     logits = torch.where(mask[:, None, None], logits,
-                         torch.tensor(NEG_INF, device=q.device))
+                         torch.full((), NEG_INF, device=q.device))
     w = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgqs,bskh->bqkgh", w, v.float())
     return out.reshape(B, Sq, H, hd).to(q.dtype)
@@ -180,7 +191,7 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
           ).float()
     ks = k.reshape(B, nkv, ckv, Kv, hd).float()
     vs = v.reshape(B, nkv, ckv, Kv, hd).float()
-    neg = torch.tensor(NEG_INF, device=dev)
+    neg = torch.full((), NEG_INF, device=dev)
     outs = []
     for iq in range(nq):
         q_i = qg[:, iq]                                   # (B,cq,Kv,G,hd)
@@ -225,7 +236,8 @@ def _two_part_decode_attention(q, cache_k, cache_v, k_new, v_new, idx):
     kl = collectives.lengths(idx, B, dev)
     valid = (torch.arange(S, device=dev)[None, :] < kl[:, None])[:, None,
                                                                   None, :]
-    logits_c = torch.where(valid, logits_c, torch.tensor(NEG_INF, device=dev))
+    logits_c = torch.where(valid, logits_c,
+                           torch.full((), NEG_INF, device=dev))
     logit_s = torch.einsum("bkgh,bkh->bkg", qg,
                            k_new[:, 0].float())[..., None]
     m = torch.maximum(logits_c.amax(-1, keepdim=True), logit_s)
@@ -246,14 +258,15 @@ def two_part_decode_attention(q, cache_k, cache_v, k_new, v_new, idx):
     function scales it (in q's dtype, then f32) and the kernel's scale 1,
     and the new token joins through the kernel's ``(l, m)``: with ``m' =
     max(m, s)``, ``w_c = exp(m - m') * l`` and ``w_s = exp(s - m')``, out
-    = ``(w_c * out_c + w_s * v_new) / (w_c + w_s)``."""
-    if not q.is_cuda:
+    = ``(w_c * out_c + w_s * v_new) / (w_c + w_s)``.  A ``meta`` q (a dry
+    run) takes the kernel's path too, with the lengths on the host."""
+    if q.device.type == "cpu":
         return _two_part_decode_attention(q, cache_k, cache_v, k_new,
                                           v_new, idx)
     B, _, H, hd = q.shape
     Kv = cache_k.shape[2]
     G = H // Kv
-    kl = collectives.lengths(idx, B, q.device)
+    kl = collectives.lengths(idx, B, "cpu" if q.is_meta else q.device)
     qs = (q[:, 0] * _scale_like(q, hd ** -0.5)).float().contiguous()
     out_c, l, m = flash_decode(qs, cache_k, cache_v, kl, scale=1.0)
     s = torch.einsum("bkgh,bkh->bkg", qs.reshape(B, Kv, G, hd),

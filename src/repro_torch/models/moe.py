@@ -61,7 +61,9 @@ def _route(p: Dict, x: torch.Tensor, cfg
     topw = topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9)
     # switch-style load-balancing aux loss
     E = m.num_experts
-    f_e = F.one_hot(topi[:, 0], E).float().mean(0)
+    # one-hot as a comparison (jax.nn.one_hot's), on every device the same
+    # ops: F.one_hot takes another decomposition on meta than on the card
+    f_e = (topi[:, :1] == torch.arange(E, device=topi.device)).float().mean(0)
     p_e = probs.mean(0)
     aux = E * torch.sum(f_e * p_e)
     return topw, topi.to(torch.int32), aux

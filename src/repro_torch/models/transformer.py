@@ -237,9 +237,12 @@ def _bf16_grad_boundary(x: torch.Tensor) -> torch.Tensor:
 
 def _maybe_remat(fn, cfg, mode: str):
     """``fn(x) -> outputs`` recomputed in the backward pass (activation
-    checkpointing) when ``cfg.remat`` is set in train mode."""
+    checkpointing) when ``cfg.remat`` is set in train mode.  A layer draws
+    no random numbers, so the recompute keeps no RNG state (stashing it
+    is host work that differs by device)."""
     if cfg.remat and mode == "train":
-        return lambda x: checkpoint(fn, x, use_reentrant=False)
+        return lambda x: checkpoint(fn, x, use_reentrant=False,
+                                    preserve_rng_state=False)
     return fn
 
 

@@ -20,6 +20,7 @@ import dataclasses
 from typing import Dict, List, Optional, Sequence
 
 
+from ..launch.roofline import HBM_BW, HBM_BYTES, PEAK_FLOPS
 from .adapter_cache import AdapterCache, CacheConfig
 from .request import Request, ServeStats, weight_key
 from .resources import (PAGE_TOKENS, PagedPool, PagedPoolConfig,
@@ -35,12 +36,12 @@ from .scheduler import Scheduler, SchedulerConfig
 @dataclasses.dataclass
 class ServingHardware:
     """One serving replica: by default one NVIDIA H100 SXM, with NVIDIA's
-    data-sheet figures (dense bf16 tensor-core rate, HBM bandwidth as
-    ``kernels/checks.HBM_BYTES_PER_S``, HBM size).  No measured fit of the
-    card's decode step replaces ``step_overhead`` yet."""
-    peak_flops: float = 989e12
-    hbm_bw: float = 3.35e12
-    hbm_bytes: float = 80e9
+    data-sheet figures (dense bf16 tensor-core rate, HBM bandwidth, HBM
+    size: ``launch/roofline.py``).  No measured fit of the card's decode
+    step replaces ``step_overhead`` yet."""
+    peak_flops: float = PEAK_FLOPS
+    hbm_bw: float = HBM_BW
+    hbm_bytes: float = HBM_BYTES
     mem_cap_frac: float = 0.4        # paper: cap at 40% of device memory
     mfu_prefill: float = 0.45
     step_overhead: float = 3e-4      # host/dispatch per decode step

@@ -59,6 +59,8 @@ import dataclasses
 import math
 from typing import Callable, Dict, List, Optional, Tuple
 
+from ..launch.roofline import HBM_BW
+
 
 # ---------------------------------------------------------------------------
 # hardware budget (typed slice pool)
@@ -593,7 +595,7 @@ class KVCompressionConfig:
     # (de)quant streaming bandwidth: one H100 SXM's HBM, 3.35 TB/s (NVIDIA's
     # data sheet); mirrors engine.ServingHardware.hbm_bw, kept in sync by
     # tests/test_torch_kvquant.py
-    mem_bw: float = 3.35e12
+    mem_bw: float = HBM_BW
     # the launch and wrapper cost per handoff, s: one kv_quantize call's
     # CUDA-event time less its device time on a (128, 65536) bf16 block
     # (chip_smoke.py's kv_quantize row, launch_overhead_ms; NVIDIA H100
@@ -726,7 +728,7 @@ class AdaptiveCompressionConfig:
     lowrank_ratio: float = 0.25
     # one H100 SXM's HBM rate and the measured launch cost per handoff,
     # as KVCompressionConfig's own defaults
-    mem_bw: float = 3.35e12
+    mem_bw: float = HBM_BW
     kernel_overhead: float = 1.55e-5
 
     def __post_init__(self):

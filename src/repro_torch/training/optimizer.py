@@ -37,7 +37,7 @@ class AdamWConfig:
 
 
 def _f32(x, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(x, dtype=torch.float32, device=like.device)
+    return torch.full((), x, dtype=torch.float32, device=like.device)
 
 
 def lr_at(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:

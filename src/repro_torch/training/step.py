@@ -53,7 +53,7 @@ def _microbatch_grads(loss_fn, params, batch, n_micro: int):
 
     mb = {k: split(v) for k, v in batch.items()}
     leaf = tree_leaves(params)[0]
-    n = torch.tensor(n_micro, dtype=torch.float32, device=leaf.device)
+    n = torch.full((), n_micro, dtype=torch.float32, device=leaf.device)
     loss_acc = torch.zeros((), dtype=torch.float32, device=leaf.device)
     grads_acc = tree_map(lambda p: torch.zeros(
         p.shape, dtype=torch.float32, device=p.device), params)
