@@ -155,6 +155,20 @@ Phases (any failure ends the script with a non-zero exit code):
    is not within 5% of the card's, the temp not within max(15%, 64 MiB),
    a share exceeds 1.05, or the dry run judges (d)'s step at all 32
    layers to fit the card.  Row 1's count is zeroed before and read after.
+12. sharded: the model's step over DTensors
+   (``launch/shardings.py::sharded_step_for``) on a one-rank NCCL group,
+   mistral-7b in bf16 at full width and depth (weights at 1/sqrt(fan-
+   in)): (a) under the serve rules, the 8 prompts of phase 10 prefilled
+   one by one into their slots (``place_inputs``, then each slot written
+   with ``write_slice``), then ``SH_STEPS`` lazy decode steps, against
+   the replicated step fed the same tokens: logits within ``LZ_BF16_ATOL``
+   and tokens equal where the replicated top-2 margin exceeds it; row 1's
+   count, zeroed just before the sharded run and read just after, must be
+   2 a layer a step, its every call on local tensors; (b) one train step
+   at depth 1 under the train rules (phase 8's batch, AdamW eps 1)
+   against the replicated step, loss and gradients within phase 8 (a)'s
+   bounds.  Host and device ms of both are printed; the phase must end
+   within ``SH_PHASE_MAX_S``.
 
 The last lines are the kernel names, the card's name and power limit, one
 JSON object with each kernel's numbers, and the ok line.
@@ -2124,6 +2138,252 @@ def phase_dryrun(dev, smi: str) -> dict:
     return {"flash_decode": n}
 
 
+# phase 12: the sharded step on a one-rank NCCL group (mistral-7b, bf16)
+SH_STEPS = 4            # lazy decode steps after the prefill
+SH_TRAIN = ("train_4x64", 64, 4, "train")      # phase 8's batch
+SH_PHASE_MAX_S = 120
+# the loss and the gradients (AdamW's first moment) of the train step on
+# the one-rank mesh against the replicated step: phase 8 (a)'s bounds
+SH_LOSS_ATOL, SH_GRAD_TOL = 1e-5, 1e-5
+
+
+def _sh_serve(dev, cfg, params, prompts, mesh=None, feed=None):
+    """Prefill each prompt into its slot of a batch-8 cache (as
+    ``RealModelExecutor.prefill_request`` does, batch 1 a prompt), then
+    ``SH_STEPS`` lazy decode steps fed ``feed`` (each step's tokens; by
+    default each step's argmax).  With ``mesh`` through the sharded step
+    (``sharded_step_for``) on DTensors placed by ``place_inputs``, else
+    through the replicated step.  Returns each prefill's last logits, each
+    step's logits (host f32), the tokens fed, the decode steps' host ms,
+    and (fn, args) of one more decode step for a profile."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed.sharding import write_slice
+    from repro_torch.launch import shardings as tshard
+    from repro_torch.models import api
+    from repro_torch.models import transformer as tf
+    pre1 = ShapeConfig("prefill_1", LZ_S_MAX, 1, "prefill")
+    dec = ShapeConfig("decode_8", LZ_S_MAX, MAX_BATCH, "decode")
+
+    def host(x):
+        return (x.full_tensor() if hasattr(x, "full_tensor") else x).float(
+        ).cpu()
+
+    def place(shape, **trees):
+        return tshard.place_inputs(cfg, shape, mesh, device=dev, **trees) \
+            if mesh is not None else trees
+
+    def step(shape):
+        return tshard.sharded_step_for(cfg, shape, mesh) \
+            if mesh is not None else api.step_fn_for(cfg, shape)
+
+    cache = place(dec, cache=tf.init_cache(cfg, MAX_BATCH, LZ_S_MAX,
+                                           device=dev))["cache"]
+    firsts, first_logits = [], []
+    for slot, prompt in enumerate(prompts):
+        ins = place(pre1, batch={"tokens": torch.as_tensor(
+            prompt[None], dtype=torch.long, device=dev)},
+            cache=tf.init_cache(cfg, 1, LZ_S_MAX, device=dev))
+        lg, c1 = step(pre1)(params, ins["batch"], ins["cache"])
+        for key in ("k", "v"):
+            write_slice(cache[key], c1[key], slot, 1, inplace=True)
+        cache["index"] = max(cache["index"], len(prompt))
+        first_logits.append(host(lg)[0, -1])
+        firsts.append(int(first_logits[-1].argmax()))
+        del lg, c1, ins
+    tokens = torch.tensor(firsts, dtype=torch.long)
+    out = {"prefill_logits": torch.stack(first_logits), "logits": [],
+           "fed": [], "host_ms": []}
+    decode = step(dec)
+    for i in range(SH_STEPS):
+        fed = feed[i] if feed is not None else tokens
+        batch = place(dec, batch={"tokens": fed[:, None].to(dev)})["batch"]
+        _sync(dev)
+        t0 = time.perf_counter()
+        lg, cache = decode(params, batch, cache)
+        lgh = host(lg)[:, -1]
+        out["host_ms"].append(1e3 * (time.perf_counter() - t0))
+        out["logits"].append(lgh)
+        out["fed"].append(fed)
+        tokens = lgh.argmax(-1)
+    out["profile"] = (decode, (params, batch, cache))
+    return out
+
+
+def _sh_train(dev, cfg, params, batch, mesh=None):
+    """One full train step (AdamW, eps 1 as phase 8 (a)) replicated or
+    through the sharded step under the train rules; (loss, mu leaves,
+    master leaves) on the host, the step's host ms, and (fn, args)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import shardings as tshard
+    from repro_torch.models.param import tree_leaves
+    from repro_torch.training.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.training.step import make_train_step
+    opt_cfg = AdamWConfig(eps=1.0)
+    shape = ShapeConfig(*SH_TRAIN)
+    if mesh is None:
+        fn = make_train_step(cfg, opt_cfg)
+        args = (params, init_opt_state(params), batch)
+    else:
+        ins = tshard.place_inputs(cfg, shape, mesh, device=dev,
+                                  params=params, batch=batch)
+        ins["opt_state"] = init_opt_state(ins["params"])
+        fn = tshard.sharded_step_for(cfg, shape, mesh, opt_cfg=opt_cfg)
+        args = (ins["params"], ins["opt_state"], ins["batch"])
+    fn(*args)                                       # warm-up
+    _sync(dev)
+    t0 = time.perf_counter()
+    _, opt, m = fn(*args)
+    _sync(dev)
+    ms = 1e3 * (time.perf_counter() - t0)
+
+    def host(x):
+        return (x.full_tensor() if hasattr(x, "full_tensor") else x).float(
+        ).cpu()
+    return (float(host(m["loss"])), [host(t) for t in tree_leaves(opt["mu"])],
+            [host(t) for t in tree_leaves(opt["master"])], ms, (fn, args))
+
+
+def phase_sharded(dev, smi: str) -> dict:
+    """Phase 12: mistral-7b through the sharded step (DTensors under the
+    serve and train rules) on a one-rank NCCL group, against the
+    replicated step; returns row 1's launches in the sharded decode."""
+    import dataclasses as dc
+    import socket
+    import numpy as np
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_decode
+    from repro_torch.launch.dryrun import _profile
+    from repro_torch.launch.families import fan_in_defs
+    from repro_torch.launch.mesh import device_mesh, make_mesh
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.param import init_params
+    from repro_torch.training.optimizer import AdamWConfig
+    t_phase = time.perf_counter()
+    torch.zeros((), device=dev)             # the allocator, if not yet
+    _free(dev)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0, device_id=dev)
+    try:
+        mesh = device_mesh(make_mesh((1, 1), ("data", "model")))
+        # (a) serve: prefill of 8 prompts of 1024-2039 tokens, then lazy
+        # decode steps, at full width and depth in bf16
+        cfg = dc.replace(get_config("mistral-7b"), decode_attn="lazy")
+        g = torch.Generator(device=dev)
+        g.manual_seed(40)
+        params = init_params(fan_in_defs(tf.model_defs(cfg)), g, dev,
+                             dtype_override=torch.bfloat16)
+        rng = np.random.default_rng(41)
+        prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int64)
+                   for n in LZ_PROMPTS]
+        rep = _sh_serve(dev, cfg, params, prompts)
+        rep_prof = _profile(lambda: rep["profile"][0](*rep["profile"][1]),
+                            dev)
+        del rep["profile"]
+        _free(dev)
+        seen = []
+        real = layers.flash_decode
+
+        def checked(q, k, v, kv_len, scale=None):
+            seen.append(any(isinstance(t, DTensor) for t in (q, k, v,
+                                                             kv_len)))
+            return real(q, k, v, kv_len, scale=scale)
+
+        layers.flash_decode = checked
+        flash_decode.LAUNCHES = 0
+        try:
+            shd = _sh_serve(dev, cfg, params, prompts, mesh, rep["fed"])
+            n_row1 = flash_decode.LAUNCHES
+            shd_prof = _profile(
+                lambda: shd["profile"][0](*shd["profile"][1]), dev)
+        finally:
+            layers.flash_decode = real
+        del shd["profile"]
+        assert seen and not any(seen), "row 1 was given a DTensor"
+        assert n_row1 == SH_STEPS * cfg.num_layers * 2, n_row1
+        d_pre = float((shd["prefill_logits"] - rep["prefill_logits"])
+                      .abs().max())
+        d_dec = max(float((a - b).abs().max())
+                    for a, b in zip(shd["logits"], rep["logits"]))
+        compared = equal = 0
+        for a, b in zip(shd["logits"], rep["logits"]):
+            top = torch.topk(b, 2, dim=-1).values
+            sure = (top[:, 0] - top[:, 1]) > LZ_BF16_ATOL
+            compared += int(sure.sum())
+            equal += int((a.argmax(-1) == b.argmax(-1))[sure].sum())
+        serve = dict(
+            card=smi, batch=MAX_BATCH, prompts=LZ_PROMPTS, steps=SH_STEPS,
+            s_max=LZ_S_MAX, max_abs_dlogit_prefill=d_pre,
+            max_abs_dlogit_decode=d_dec, logit_tol=LZ_BF16_ATOL,
+            tokens_compared=compared, tokens_equal=equal,
+            flash_decode_launches=n_row1, flash_decode_inputs="local",
+            host_ms_step={"replicated": rep["host_ms"],
+                          "sharded": shd["host_ms"]},
+            device={"replicated": rep_prof, "sharded": shd_prof})
+        log(f"[sharded] (a) mistral-7b bf16 on a one-rank mesh, serve "
+            f"rules, sharded against replicated: {json.dumps(serve)}")
+        assert d_pre < LZ_BF16_ATOL and d_dec < LZ_BF16_ATOL, serve
+        assert equal == compared > 0, serve
+        del params, rep, shd
+        _free(dev)
+        # (b) one full train step at depth 1 under the train rules against
+        # the replicated step (phase 8's batch)
+        cfg1 = dc.replace(get_config("mistral-7b"), num_layers=1)
+        g.manual_seed(42)
+        params = init_params(fan_in_defs(tf.model_defs(cfg1)), g, dev,
+                             dtype_override=torch.bfloat16)
+        gb = torch.Generator(device=dev)
+        gb.manual_seed(43)
+        batch = {k: torch.randint(0, cfg1.vocab_size, SH_TRAIN[2:0:-1],
+                                  generator=gb, device=dev)
+                 for k in ("tokens", "targets")}
+        runs = {}
+        for name, m in (("replicated", None), ("sharded", mesh)):
+            loss, mu, master, ms, (fn, args) = _sh_train(dev, cfg1, params,
+                                                         batch, m)
+            runs[name] = dict(loss=loss, mu=mu, master=master, host_ms=ms,
+                              device=_profile(lambda: fn(*args), dev))
+            del fn, args
+            _free(dev)
+        a, b = runs["sharded"], runs["replicated"]
+        scale = max(float(t.abs().max()) for t in b["mu"])
+        # phase 8 (a)'s bound on the master weights: lr times the
+        # gradients' tolerance plus one f32 rounding of the largest
+        tol_master = AdamWConfig(eps=1.0).lr * SH_GRAD_TOL + torch.finfo(
+            torch.float32).eps * max(float(t.abs().max())
+                                     for t in b["master"])
+        train = dict(
+            card=smi, layers=1, batch=SH_TRAIN[2], seq=SH_TRAIN[1],
+            loss={k: r["loss"] for k, r in runs.items()},
+            max_abs_dloss=abs(a["loss"] - b["loss"]),
+            max_rel_dgrad=max(float((x - y).abs().max())
+                              for x, y in zip(a["mu"], b["mu"])) / scale,
+            max_abs_dmaster=max(float((x - y).abs().max())
+                                for x, y in zip(a["master"], b["master"])),
+            tol_master=tol_master,
+            host_ms={k: r["host_ms"] for k, r in runs.items()},
+            device={k: r["device"] for k, r in runs.items()})
+        log(f"[sharded] (b) mistral-7b train step, depth 1, train rules on "
+            f"a one-rank mesh against the replicated step: "
+            f"{json.dumps(train)}")
+        assert train["max_abs_dloss"] <= SH_LOSS_ATOL, train
+        assert train["max_rel_dgrad"] <= SH_GRAD_TOL, train
+        assert train["max_abs_dmaster"] <= tol_master, train
+        del params, runs
+    finally:
+        dist.destroy_process_group()
+        _free(dev)
+    wall = time.perf_counter() - t_phase
+    log(f"[sharded] flash_decode launches {n_row1}; phase {wall:.1f} s")
+    assert wall < SH_PHASE_MAX_S, f"phase 12 took {wall:.1f} s"
+    return {"flash_decode": n_row1}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2160,6 +2420,9 @@ def main() -> int:
         text=True).stdout.strip().splitlines()[0]
     by_path["dryrun"] = phase_dryrun(dev, smi)
     for name, n in by_path["dryrun"].items():
+        launches[name] += n
+    by_path["sharded"] = phase_sharded(dev, smi)
+    for name, n in by_path["sharded"].items():
         launches[name] += n
     kernels = []
     for name, meta in KERNELS.items():

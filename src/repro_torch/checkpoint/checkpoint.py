@@ -13,6 +13,15 @@ A save is written into ``.tmp_step_N`` and renamed to ``step_N`` when
 complete; only the newest ``keep`` steps are kept.  ``restore_checkpoint``
 places each leaf on the device of the matching leaf of ``tree_like``, so a
 checkpoint written on the card restores on the CPU and the other way.
+
+Sharded (the port of the JAX module's elastic restore): a tree of
+DTensors is saved as its assembled values, leaf by leaf (each gathered,
+copied to the host by rank 0, and freed), in the same layout; rank 0
+writes and, in a blocking save, the other ranks wait at a barrier until
+the step is on disk.  ``restore_checkpoint(..., shardings=)`` places each
+leaf under a tree of ``NamedSharding`` on the caller's mesh, which may
+differ from the save-time mesh: each rank reads only its own block of
+each file (memory-mapped) into a DTensor.
 """
 from __future__ import annotations
 
@@ -26,6 +35,9 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from ..distributed.sharding import is_dtensor, island_out, local_block
 
 _SEP = "::"
 _ASYNC_STATE: dict = {}
@@ -73,7 +85,9 @@ def save_checkpoint(ckpt_dir: str, step: int, tree, *,
                     _async_state: dict = _ASYNC_STATE) -> str:
     """Write `tree` under ckpt_dir/step_N (atomic rename).  The device-to-
     host copy happens before this returns; with ``blocking=False`` the
-    files are written by a thread (:func:`wait_for_async_saves` joins it)."""
+    files are written by a thread (:func:`wait_for_async_saves` joins it).
+    A tree of DTensors is called on every rank of its mesh: rank 0 writes
+    the assembled values (the others wait, in a blocking save)."""
     # join any in-flight async save before touching tmp dirs: a previous
     # save of the same step (re-reached after a restart) may still be
     # writing into .tmp_step_N
@@ -81,15 +95,25 @@ def save_checkpoint(ckpt_dir: str, step: int, tree, *,
     if prev is not None and prev.is_alive():
         prev.join()
     base = Path(ckpt_dir)
-    base.mkdir(parents=True, exist_ok=True)
     tmp = base / f".tmp_step_{step}"
     final = base / f"step_{step}"
+    flat = _flatten(tree)
+    sharded = any(is_dtensor(v) for v in flat.values())
+    writer = not sharded or dist.get_rank() == 0
+    host = {}
+    for k, v in flat.items():
+        if is_dtensor(v):
+            v = v.full_tensor()         # every rank takes part; one leaf
+        if writer:
+            host[k] = _to_host(v)
+    if not writer:
+        if blocking:
+            dist.barrier()
+        return str(final)
+    base.mkdir(parents=True, exist_ok=True)
     if tmp.exists():
         shutil.rmtree(tmp)
     tmp.mkdir()
-
-    flat = _flatten(tree)
-    host = {k: _to_host(v) for k, v in flat.items()}
 
     def write():
         manifest = {}
@@ -107,6 +131,8 @@ def save_checkpoint(ckpt_dir: str, step: int, tree, *,
 
     if blocking:
         write()
+        if sharded:
+            dist.barrier()
     else:
         t = threading.Thread(target=write, daemon=True)
         t.start()
@@ -136,18 +162,44 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore_checkpoint(ckpt_dir: str, step: int, tree_like):
-    """Restore into the structure of `tree_like`, each leaf on the device of
-    the matching leaf there, in the dtype the manifest records."""
+def _from_host(arr: np.ndarray, dtype: str) -> torch.Tensor:
+    # np.array, not np.ascontiguousarray, which makes a 0-d array 1-d; a
+    # copy, which also reads a memory-mapped block into memory
+    arr = np.array(arr, order="C", copy=True)
+    if dtype == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+def _mesh_device(sharding):
+    dm = sharding.mesh._dm()
+    if dm.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(dm.device_type)
+
+
+def restore_checkpoint(ckpt_dir: str, step: int, tree_like, *,
+                       shardings=None):
+    """Restore into the structure of `tree_like`, in the dtype the manifest
+    records: each leaf on the device of the matching leaf there or, with
+    ``shardings`` (a matching tree of ``NamedSharding`` on a mesh with a
+    DeviceMesh, possibly another mesh than at save time: elastic
+    restore), as a DTensor under it holding this rank's block alone."""
     base = Path(ckpt_dir) / f"step_{step}"
     manifest = json.loads((base / "manifest.json").read_text())["arrays"]
+    flat_sh = _flatten(shardings) if shardings is not None else {}
     out = {}
     for k, like in _flatten(tree_like).items():
         meta = manifest[k]
-        arr = np.load(base / meta["file"])
-        if meta["dtype"] == "bfloat16":
-            t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
-        else:
-            t = torch.from_numpy(arr)
-        out[k] = t.to(like.device)
+        sh = flat_sh.get(k)
+        if sh is None:
+            out[k] = _from_host(np.load(base / meta["file"]),
+                                meta["dtype"]).to(like.device)
+            continue
+        arr = np.load(base / meta["file"], mmap_mode="r")
+        block = local_block(arr.shape, sh.spec, sh.mesh,
+                            sh.mesh.coordinates())
+        local = _from_host(arr[block], meta["dtype"]).to(_mesh_device(sh))
+        out[k] = island_out(local, sh.mesh._dm(), sh.placements(),
+                            tuple(arr.shape))
     return _unflatten(tree_like, out)

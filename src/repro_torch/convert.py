@@ -17,7 +17,9 @@ re-viewed as ``torch.bfloat16`` on the other side, which is exact.
 :func:`to_numpy` brings a tree of tensors back for comparison with the
 JAX package's results.  :func:`to_rank` carries a tree across to one rank
 of a mesh: each leaf's block under its sharding (``launch/shardings.py``),
-so a rank receives only its shard of the arrays JAX drew.
+so a rank receives only its shard of the arrays JAX drew, and
+:func:`to_dtensors` makes those blocks the DTensors of the sharded step
+(no communication: each rank wraps its own block).
 """
 from __future__ import annotations
 
@@ -70,8 +72,36 @@ def to_rank(tree, shardings, coords, device="cpu"):
                 for k, v in tree.items()}
     block = local_block(tree.shape, shardings.spec, shardings.mesh, coords)
     if isinstance(tree, torch.Tensor):
-        return tree[block].contiguous().to(device)
+        # a copy: a view would keep the whole array's storage alive
+        return tree[block].to(device=device, copy=True,
+                              memory_format=torch.contiguous_format)
     return array_to_tensor(np.asarray(tree)[block], device)
+
+
+def to_dtensor(a, sharding, device="cpu"):
+    """One array or tensor, whole, as a DTensor on ``sharding.mesh``'s
+    DeviceMesh: this rank's block (:func:`to_rank`) under the sharding's
+    placements (a ``meta`` tensor's block stays on ``meta``)."""
+    from .distributed.sharding import island_out
+    m = sharding.mesh
+    if isinstance(a, torch.Tensor) and a.is_meta:
+        device = "meta"
+    local = to_rank(a, sharding, m.coordinates(), device)
+    return island_out(local, m._dm(), sharding.placements(), tuple(a.shape))
+
+
+def to_dtensors(tree, shardings, device="cpu"):
+    """Nested dict of arrays or tensors (whole on every rank) -> the same
+    dict of DTensors under the ``NamedSharding`` tree ``shardings`` (on a
+    mesh with a DeviceMesh).  A Python int (a cache's ``index``) or a 0-d
+    integer array under a key named ``index`` stays a host integer; a
+    ``meta`` one (a dry run's input) is placed as the other leaves."""
+    if isinstance(tree, dict):
+        return {k: (int(np.asarray(v)) if k == "index" and not (
+                    isinstance(v, torch.Tensor) and v.is_meta)
+                    else to_dtensors(v, shardings[k], device))
+                for k, v in tree.items()}
+    return to_dtensor(tree, shardings, device)
 
 
 def tensor_to_array(t: torch.Tensor) -> np.ndarray:

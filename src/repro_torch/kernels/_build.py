@@ -22,6 +22,9 @@ import subprocess
 import tempfile
 import threading
 
+import torch
+from torch.distributed.tensor import DTensor
+
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 REPO_ROOT = pathlib.Path(__file__).resolve().parents[3]
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -141,11 +144,20 @@ def lib():
     return _LIB
 
 
-def refuse_meta(name: str, *tensors) -> None:
-    """Raise ``ValueError`` naming the wrapper ``name`` where one of
-    ``tensors`` is on ``meta``: a dry run reaches ``flash_decode``'s meta
-    branch only, and no meta pointer reaches a launch."""
-    if any(t is not None and t.device.type == "meta" for t in tensors):
+def refuse(name: str, *args, meta: bool = True) -> None:
+    """Raise naming the wrapper ``name`` where one of ``args`` is a
+    DTensor (``TypeError``: a kernel takes a rank's own block, which the
+    sharded step passes from its per-rank islands,
+    ``distributed/sharding.py``; no wrapper assembles a whole tensor) or,
+    with ``meta``, a tensor on ``meta`` (``ValueError``: a dry run reaches
+    ``flash_decode``'s meta branch only, and no meta pointer reaches a
+    launch)."""
+    for a in args:
+        if isinstance(a, DTensor):
+            raise TypeError(f"{name}: a DTensor; pass this rank's block "
+                            f"(to_local() inside a per-rank island)")
+    if meta and any(isinstance(a, torch.Tensor) and a.device.type == "meta"
+                    for a in args):
         raise ValueError(f"{name}: a meta tensor; the dry run has no "
                          f"counterpart of this kernel")
 

@@ -205,6 +205,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     Returns (out (B, H, hd) in q's dtype, l (B, Kv, G, 1) f32,
     m (B, Kv, G, 1) f32), as the JAX function does."""
+    _build.refuse("flash_decode", q, k, v, kv_len, scale, meta=False)
     global LAUNCHES
     if q.device.type == "cpu":
         return ref.flash_decode_ref(q, k, v, kv_len, scale)
@@ -267,11 +268,12 @@ def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
     (B, n_blocks) int32, sequence b's logical block s in page
     ``page_table[b, s]``; kv_len: (B,) int32 (clamped to n_blocks *
     page_t).  Returns (out, l, m) as :func:`flash_decode`."""
+    _build.refuse("flash_decode_paged", q, k_pages, v_pages, page_table,
+                  kv_len)
     global LAUNCHES_PAGED
     if q.device.type == "cpu":
         return ref.flash_decode_paged_ref(q, k_pages, v_pages, page_table,
                                           kv_len)
-    _build.refuse_meta("flash_decode_paged", q, k_pages, v_pages)
     *dims, page_t, n_blocks = check_paged_args(q, k_pages, v_pages,
                                                page_table, kv_len)
     addr = paged_launch_args(k_pages, v_pages, page_table, page_t, n_blocks)

@@ -201,9 +201,10 @@ def fused_decode_lora(q, k, v, kv_len, ids, A, B,
     (n, r, 1); B: (n, d_out, r) fp or int8 with b_scale (n, d_out, 1).
     Returns (out (B, H, hd), delta (B, d_out) f32), delta un-scaled by the
     LoRA ``scaling``."""
+    _build.refuse("fused_decode_lora", q, k, v, kv_len, ids, A, B, a_scale,
+                  b_scale)
     global LAUNCHES_LORA
     _check_kv_heads(k.shape[-2])
-    _build.refuse_meta("fused_decode_lora", q, k, v, A, B)
     if q.device.type == "cpu":
         return ref.fused_decode_lora_ref(q, k, v, kv_len, ids, A, B,
                                          a_scale, b_scale)
@@ -220,9 +221,10 @@ def fused_decode_lora_paged(q, k_pages, v_pages, page_table, kv_len, ids, A,
     """:func:`fused_decode_lora` over a paged pool: k/v_pages (P, page_t,
     Kv, hd) and page_table (B, n_blocks) int32, as ``flash_decode_paged``
     takes them."""
+    _build.refuse("fused_decode_lora_paged", q, k_pages, v_pages, page_table,
+                  kv_len, ids, A, B, a_scale, b_scale)
     global LAUNCHES_LORA_PAGED
     _check_kv_heads(k_pages.shape[-2])
-    _build.refuse_meta("fused_decode_lora_paged", q, k_pages, v_pages, A, B)
     if q.device.type == "cpu":
         return ref.fused_decode_lora_paged_ref(
             q, k_pages, v_pages, page_table, kv_len, ids, A, B, a_scale,
@@ -245,9 +247,10 @@ def fused_decode_jd(q, k, v, kv_len, ids, U, V, sigma, cluster_of,
     / v_scale (k, 1, r); sigma: per-adapter (n, r) diag or (n, r, r) full,
     bf16 or f32; cluster_of: (n,) int32.  Returns (out (B, H, hd),
     delta (B, d_out) f32)."""
+    _build.refuse("fused_decode_jd", q, k, v, kv_len, ids, U, V, sigma,
+                  cluster_of, u_scale, v_scale)
     global LAUNCHES_JD
     _check_kv_heads(k.shape[-2])
-    _build.refuse_meta("fused_decode_jd", q, k, v, U, V, sigma)
     if q.device.type == "cpu":
         return ref.fused_decode_jd_ref(q, k, v, kv_len, ids, U, V, sigma,
                                        cluster_of, u_scale, v_scale)
@@ -265,10 +268,10 @@ def fused_decode_jd_paged(q, k_pages, v_pages, page_table, kv_len, ids, U, V,
                           v_scale: Optional[torch.Tensor] = None):
     """:func:`fused_decode_jd` over a paged pool (the layout of
     :func:`fused_decode_lora_paged`)."""
+    _build.refuse("fused_decode_jd_paged", q, k_pages, v_pages, page_table,
+                  kv_len, ids, U, V, sigma, cluster_of, u_scale, v_scale)
     global LAUNCHES_JD_PAGED
     _check_kv_heads(k_pages.shape[-2])
-    _build.refuse_meta("fused_decode_jd_paged", q, k_pages, v_pages, U, V,
-                       sigma)
     if q.device.type == "cpu":
         return ref.fused_decode_jd_paged_ref(
             q, k_pages, v_pages, page_table, kv_len, ids, U, V, sigma,

@@ -38,8 +38,8 @@ def jd_shrink_scale(x: torch.Tensor, V: torch.Tensor,
     """x: (T_pad, d_in); V: (k, d_in, r); sigma_tok: (T_pad, r) per-token
     diagonal Sigma (None: no scale); tile_cids: (T_pad / block_t,) cluster
     per tile.  Returns (x @ V[cluster]) * sigma_tok, (T_pad, r) f32."""
+    _build.refuse("jd_shrink_scale", x, V, sigma_tok, tile_cids)
     global LAUNCHES
-    _build.refuse_meta("jd_shrink_scale", x, V, sigma_tok)
     if x.device.type == "cpu":
         return ref.jd_shrink_scale_ref(x, V, sigma_tok,
                                        ref.tile_rows(tile_cids, x.shape[0]))
@@ -75,7 +75,7 @@ def jd_apply(x, U, V, sigma, ids, tile_cids, tile_ids) -> torch.Tensor:
     the adapter of each row; tile_cids / tile_ids the cluster / adapter of
     each tile (one adapter, hence one cluster, per tile).  Returns
     (T_pad, d_out) in x's dtype."""
-    _build.refuse_meta("jd_apply", x, U, V, sigma)
+    _build.refuse("jd_apply", x, U, V, sigma, ids, tile_cids, tile_ids)
     T, n_tiles = x.shape[0], tile_ids.shape[0]
     if tile_cids.shape != tile_ids.shape or (T % n_tiles if n_tiles else T):
         raise ValueError("tile_cids and tile_ids must cut x into equal tiles")

@@ -56,6 +56,7 @@ def kv_quantize(x: torch.Tensor, bits: int = 8):
 
     Returns ``(packed, scales)``: packed is (T, C) int8 for 8 bits or
     (T/2, C) uint8 for 4 bits; scales is (1, C) f32."""
+    _build.refuse("kv_quantize", x, bits)
     global LAUNCHES_QUANT
     if x.ndim != 2:
         raise ValueError(f"a KV block is (T, C), got {tuple(x.shape)}")
@@ -63,7 +64,6 @@ def kv_quantize(x: torch.Tensor, bits: int = 8):
     T, C = x.shape
     if bits == 4 and T % 2:
         raise ValueError("int4 packing needs an even token count")
-    _build.refuse_meta("kv_quantize", x)
     if x.device.type == "cpu":
         q, scales = ref.kv_quant_ref(x, bits)
         return (q if bits == 8 else ref.pack_int4(q)), scales
@@ -87,6 +87,7 @@ def kv_dequantize(packed: torch.Tensor, scales: torch.Tensor, bits: int = 8,
                   out_dtype=torch.float32) -> torch.Tensor:
     """Invert :func:`kv_quantize`: the (T, C) block in ``out_dtype`` (f32
     or bf16), one f32 multiply and one rounding per value."""
+    _build.refuse("kv_dequantize", packed, scales, bits, out_dtype)
     global LAUNCHES_DEQUANT
     _check_bits(bits)
     if packed.ndim != 2:
@@ -98,7 +99,6 @@ def kv_dequantize(packed: torch.Tensor, scales: torch.Tensor, bits: int = 8,
         raise TypeError(f"{bits}-bit values are {want}, got {packed.dtype}")
     if tuple(scales.shape) != (1, C) or scales.dtype != torch.float32:
         raise ValueError(f"scales must be (1, {C}) f32")
-    _build.refuse_meta("kv_dequantize", packed, scales)
     if packed.device.type == "cpu":
         q = packed if bits == 8 else ref.unpack_int4(packed)
         return ref.kv_dequant_ref(q, scales, out_dtype)

@@ -33,7 +33,7 @@ def lora_apply(x, A, B, ids, *, tile: int = 128, scaling: float = 1.0):
     Tokens are grouped by adapter on the host (one copy of ``ids``), the
     grouped shrink and expand run, and the valid rows are scattered back.
     Returns (T, d_out) in x's dtype."""
-    _build.refuse_meta("lora_apply", x, A, B)
+    _build.refuse("lora_apply", x, A, B, ids)
     if x.device.type == "cpu":
         return ref.lora_apply_ref(x, A, B, ids, scaling)
     return lora_apply_grouped(x, A, B, ids, tile=tile, scaling=scaling)
@@ -43,7 +43,7 @@ def lora_apply_grouped(x, A, B, ids, *, tile: int = 128,
                        scaling: float = 1.0):
     """:func:`lora_apply`'s grouped path on any device (on the CPU each
     stage runs its plain version): what the TPU's non-``ref`` path does."""
-    _build.refuse_meta("lora_apply_grouped", x, A, B)
+    _build.refuse("lora_apply_grouped", x, A, B, ids)
     perm, tile_ids, valid = ref.group_tokens_by_adapter(ids, A.shape[0],
                                                         tile)
     xg = x[perm.long()]
@@ -60,7 +60,7 @@ def jd_apply(x, U, V, sigma, cluster_of, ids, *, tile: int = 128):
     A full Sigma is applied as ``t @ Sigma``, i.e. ``U Sigma^T V^T x``, as
     in the JAX package; compression's ``Sigma_i = U^T B_i A_i V`` needs its
     transpose here to reproduce ``B_i A_i x``."""
-    _build.refuse_meta("jd_apply", x, U, V, sigma)
+    _build.refuse("jd_apply", x, U, V, sigma, cluster_of, ids)
     if x.device.type == "cpu":
         return ref.jd_apply_ref(x, U, V, sigma, cluster_of, ids)
     return jd_apply_grouped(x, U, V, sigma, cluster_of, ids, tile=tile)
@@ -68,7 +68,7 @@ def jd_apply(x, U, V, sigma, cluster_of, ids, *, tile: int = 128):
 
 def jd_apply_grouped(x, U, V, sigma, cluster_of, ids, *, tile: int = 128):
     """:func:`jd_apply`'s grouped path on any device."""
-    _build.refuse_meta("jd_apply_grouped", x, U, V, sigma)
+    _build.refuse("jd_apply_grouped", x, U, V, sigma, cluster_of, ids)
     perm, tile_ids, valid = ref.group_tokens_by_adapter(ids, sigma.shape[0],
                                                         tile)
     pl = perm.long()

@@ -92,8 +92,8 @@ def sgmv_shrink(x: torch.Tensor, A: torch.Tensor, tile_ids: torch.Tensor, *,
                 block_t: int = 128) -> torch.Tensor:
     """x: (T_pad, d_in) grouped tokens; A: (n, r, d_in); tile_ids:
     (T_pad / block_t,) adapter per tile.  Returns (T_pad, r) f32."""
+    _build.refuse("sgmv_shrink", x, A, tile_ids)
     global LAUNCHES_SHRINK
-    _build.refuse_meta("sgmv_shrink", x, A)
     if x.device.type == "cpu":
         return ref.sgmv_shrink_ref(x.float(), A,
                                    ref.tile_rows(tile_ids, x.shape[0]))
@@ -120,8 +120,8 @@ def sgmv_expand(t: torch.Tensor, B: torch.Tensor, tile_ids: torch.Tensor, *,
                 block_t: int = 128) -> torch.Tensor:
     """t: (T_pad, r); B: (n, d_out, r); returns (T_pad, d_out) in t's
     dtype."""
+    _build.refuse("sgmv_expand", t, B, tile_ids)
     global LAUNCHES_EXPAND
-    _build.refuse_meta("sgmv_expand", t, B)
     if t.device.type == "cpu":
         return ref.sgmv_expand_ref(t, B, ref.tile_rows(tile_ids, t.shape[0]))
     dev = t.device
@@ -148,8 +148,8 @@ def sigma_bmm(t: torch.Tensor, sigma: torch.Tensor, tile_ids: torch.Tensor,
     """t: (T_pad, r); sigma: (n, r, r); per-tile adapter ids.  Returns
     t @ sigma[id] per tile, (T_pad, r) in t's dtype (JD-Full's middle
     stage)."""
+    _build.refuse("sigma_bmm", t, sigma, tile_ids)
     global LAUNCHES_SIGMA
-    _build.refuse_meta("sigma_bmm", t, sigma)
     if t.device.type == "cpu":
         return ref.sigma_bmm_ref(t, sigma, ref.tile_rows(tile_ids,
                                                          t.shape[0]))

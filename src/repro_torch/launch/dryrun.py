@@ -15,14 +15,16 @@ bound's arithmetic.  No device is used, and the record says so.
 
 A record holds ``params`` and ``active_params``; ``memory``: the
 per-rank ``argument_bytes`` of params, optimizer state, batch and cache
-under ``launch/shardings.py`` (XLA's ``argument_size_in_bytes``), and on
-a one-rank mesh the step's ``peak_bytes`` and ``temp_bytes`` (peak less
-the arguments) with ``fits`` (peak <= ``roofline.HBM_BYTES``);
-``op_cost``, ``collectives`` and ``roofline`` (``launch/roofline.py``,
-H100 data sheet).  Decode takes the cache's ``index`` as a host integer,
-``seq_len - 1``; prefill 0.  A mesh of more than one rank gives the
-argument bytes only: the port has no sharded step (its model code runs
-replicated), so ``"step"`` is null.
+under ``launch/shardings.py`` (XLA's ``argument_size_in_bytes``), and
+the step's ``peak_bytes`` and ``temp_bytes`` (peak less the arguments)
+with ``fits`` (peak <= ``roofline.HBM_BYTES``); ``op_cost``,
+``collectives`` and ``roofline`` (``launch/roofline.py``, H100 data
+sheet).  Decode takes the cache's ``index`` as a host integer,
+``seq_len - 1``; prefill 0.  On a mesh of more than one rank these are
+rank 0's: the sharded step (``launch/shardings.py::sharded_step_for``,
+DTensors under the serve or train rules) runs on ``meta`` tensors as
+rank 0 of a fake process group of the mesh's size, in this one process
+(:func:`fake_group`): its local ops, its collectives, its peak.
 
 :func:`measure_cell` runs the same step on the card and returns its
 readings beside this prediction at the same depth.
@@ -34,6 +36,7 @@ JAX tool's sweep.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import time
@@ -52,19 +55,17 @@ from ..training.optimizer import abstract_opt_state, init_opt_state
 from ..training.step import auto_microbatches, make_train_step
 from . import op_cost
 from . import shardings as sh
-from .mesh import make_mesh, mesh_description
+from .mesh import device_mesh, make_mesh, mesh_description
 from .roofline import HBM_BYTES, Roofline, model_flops_for
 
 RESULTS_DIR = Path(__file__).resolve().parents[3] / "results" / "dryrun_torch"
-# the meshes by name: one card, one host of four, a pod, two pods
+# the meshes by name: one card, one host of four (tensor parallel, and
+# JAX's make_mesh_for(4, model_parallel=2)), a pod, two pods
 MESHES = {"1": ((1, 1), ("data", "model")),
           "1x4": ((1, 4), ("data", "model")),
+          "2x2": ((2, 2), ("data", "model")),
           "16x16": ((16, 16), ("data", "model")),
           "2x16x16": ((2, 16, 16), ("pod", "data", "model"))}
-NO_STEP = ("the port has no sharded step: its model code runs replicated "
-           "over a mesh, and a replicated step's cost divided by the ranks "
-           "is not what a rank does; only the per-rank argument bytes are "
-           "given")
 
 
 def skip_reason(cfg: ModelConfig, shape: ShapeConfig) -> str | None:
@@ -116,12 +117,35 @@ def argument_bytes(cfg: ModelConfig, shape: ShapeConfig, mesh) -> dict:
     return out
 
 
-def _n_micro(cfg, shape, n_micro_override):
+def _n_micro(cfg, shape, n_micro_override, mesh=None):
+    """JAX's choice: the batch shards and the model axis (the sequence
+    sharding of the rematted layer inputs) of the mesh."""
     if shape.kind != "train":
         return 1
     if n_micro_override is not None:
         return n_micro_override
-    return auto_microbatches(cfg, shape, 1)
+    n_batch = seq = 1
+    if mesh is not None:
+        n_batch = mesh.shape.get("pod", 1) * mesh.shape.get("data", 1)
+        seq = mesh.shape.get("model", 1)
+    return auto_microbatches(cfg, shape, n_batch, seq_shard=seq)
+
+
+@contextlib.contextmanager
+def fake_group(mesh):
+    """``mesh`` with a DeviceMesh over a fake process group of its size,
+    this process its rank 0: collectives return at once and move nothing,
+    so a sharded step on ``meta`` tensors runs as rank 0 would run it."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("a process group is initialised already")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=mesh.size)
+    try:
+        yield device_mesh(mesh, "cpu")
+    finally:
+        dist.destroy_process_group()
 
 
 def step_and_args(cfg: ModelConfig, shape: ShapeConfig, params, batch,
@@ -143,10 +167,44 @@ def step_and_args(cfg: ModelConfig, shape: ShapeConfig, params, batch,
     return fn, (params, opt_state, batch)
 
 
+def sharded_step_and_args(cfg: ModelConfig, shape: ShapeConfig, mesh,
+                          index: Optional[int] = None, n_micro: int = 1):
+    """(fn, args) of the cell's sharded step on ``meta`` DTensors placed on
+    ``mesh`` (which carries a DeviceMesh), as :func:`step_and_args`."""
+    params = abstract_params(tf.model_defs(cfg))
+    trees = {"params": params, "batch": api.batch_struct(cfg, shape)}
+    if shape.kind == "train":
+        trees["opt_state"] = abstract_opt_state(params)
+    else:
+        trees["cache"] = api.cache_struct(cfg, shape)
+        trees["cache"]["index"] = default_index(shape, index)
+    placed = sh.place_inputs(cfg, shape, mesh, **trees)
+    if shape.kind != "train":
+        return (sh.sharded_step_for(cfg, shape, mesh),
+                (placed["params"], placed["batch"], placed["cache"]))
+    args = (placed["params"], placed["opt_state"], placed["batch"])
+    if n_micro <= 1:
+        return sh.sharded_step_for(cfg, shape, mesh), args
+    b = shape.global_batch // n_micro
+
+    def fn(params, opt_state, batch, n_micro):
+        part = {k: v[:n_micro * b] for k, v in batch.items()}
+        return sh.sharded_step_for(cfg, shape, mesh, n_micro=n_micro)(
+            params, opt_state, part)
+
+    return fn, args
+
+
 def step_record(cfg: ModelConfig, shape: ShapeConfig,
-                index: Optional[int] = None, n_micro: int = 1) -> dict:
+                index: Optional[int] = None, n_micro: int = 1,
+                mesh=None) -> dict:
     """``op_cost.analyze_step`` of the cell's step on ``meta`` tensors;
-    ``index`` the decode cache's (default ``seq_len - 1``)."""
+    ``index`` the decode cache's (default ``seq_len - 1``).  On a
+    ``mesh`` of more than one rank (with a DeviceMesh: :func:`fake_group`)
+    the sharded step's, as the rank of this process runs it."""
+    if mesh is not None and mesh.size > 1:
+        fn, args = sharded_step_and_args(cfg, shape, mesh, index, n_micro)
+        return op_cost.analyze_step(fn, *args, n_micro=n_micro)
     defs = tf.model_defs(cfg)
     params = abstract_params(defs)
     batch = api.batch_struct(cfg, shape)
@@ -171,14 +229,15 @@ OP_COST_KEYS = ("flops", "bytes", "launches", "ops", "n_micro", "kernels",
 
 
 def predict(cfg: ModelConfig, shape: ShapeConfig, index: Optional[int] = None,
-            n_micro: int = 1) -> dict:
-    """The one-card part of a record: memory, fits, op_cost (the step's
-    ``op_cost`` record less its memory), collectives, roofline and its
-    bound."""
-    r = step_record(cfg, shape, index, n_micro)
+            n_micro: int = 1, mesh=None) -> dict:
+    """The step part of a record, per rank: memory, fits, op_cost (the
+    step's ``op_cost`` record less its memory), collectives, roofline and
+    its bound (one card, or rank 0 of ``mesh``: :func:`step_record`)."""
+    r = step_record(cfg, shape, index, n_micro, mesh)
     roof = Roofline(flops_per_dev=r["flops"], hbm_bytes_per_dev=r["bytes"],
                     coll_bytes_per_dev=r["collectives"]["bytes_moved"],
-                    n_devices=1, model_flops=model_flops_for(cfg, shape))
+                    n_devices=mesh.size if mesh is not None else 1,
+                    model_flops=model_flops_for(cfg, shape))
     return {
         "memory": {"peak_bytes": r["peak_bytes"],
                    "temp_bytes": r["temp_bytes"],
@@ -217,14 +276,16 @@ def run_cell(arch: str, shape_name, mesh: str = "1",
                      "argument_bytes_by_input": parts}
     rec["params"] = cfg.param_count()
     rec["active_params"] = cfg.active_param_count()
-    if m.size > 1:
-        rec.update(step=None, step_reason=NO_STEP, ok=True)
-        return rec
-    n_micro = _n_micro(cfg, shape, n_micro_override)
+    n_micro = _n_micro(cfg, shape, n_micro_override, m)
     rec["n_micro"] = n_micro
     if shape.kind != "train":
         rec["index"] = default_index(shape)
-    pred = predict(cfg, shape, n_micro=n_micro)
+    if m.size > 1:
+        rec["rank"] = 0
+        with fake_group(m) as dm:
+            pred = predict(cfg, shape, n_micro=n_micro, mesh=dm)
+    else:
+        pred = predict(cfg, shape, n_micro=n_micro)
     rec["memory"].update(pred.pop("memory"))
     rec.update(pred)
     rec["step"] = "meta"

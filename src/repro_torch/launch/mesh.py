@@ -8,7 +8,7 @@ the caller has initialised with one rank per mesh position.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 from ..distributed.sharding import Mesh
 
@@ -24,16 +24,22 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
 
 
 def make_mesh_for(n_devices: int, model_parallel: int = 1,
-                  pods: int = 1) -> Mesh:
-    """Elastic scaling: the best mesh for the devices that are alive."""
+                  pods: int = 1, device_type: Optional[str] = None) -> Mesh:
+    """Elastic scaling: the best mesh for the devices that are alive.  With
+    ``device_type`` (``"cuda"`` or ``"cpu"``) the mesh carries a DeviceMesh
+    over the initialised process group of ``n_devices`` ranks
+    (:func:`device_mesh`), so the restart after a failure restores its
+    checkpoint onto it (``checkpoint.restore_checkpoint(...,
+    shardings=)``) and runs the sharded step there."""
     if n_devices % (model_parallel * pods):
         raise ValueError(f"{n_devices} devices do not split into "
                          f"{pods} pods x {model_parallel} model ranks")
     data = n_devices // (model_parallel * pods)
     if pods > 1:
-        return make_mesh((pods, data, model_parallel),
-                         ("pod", "data", "model"))
-    return make_mesh((data, model_parallel), ("data", "model"))
+        m = make_mesh((pods, data, model_parallel), ("pod", "data", "model"))
+    else:
+        m = make_mesh((data, model_parallel), ("data", "model"))
+    return m if device_type is None else device_mesh(m, device_type)
 
 
 def mesh_description(mesh: Mesh) -> dict:

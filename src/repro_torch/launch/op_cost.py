@@ -20,8 +20,16 @@ under a ``TorchDispatchMode`` that records, for each aten op it reaches,
   = peak less the arguments.
 
 On ``meta`` tensors the step does no work and needs no device: the record
-is what the step would do on the card.  A port kernel (``kernels/``) is
-one entry of the record, written by the wrapper through
+is what the step would do on the card.
+
+A sharded step (DTensors, ``launch/shardings.py::sharded_step_for``) is
+recorded as the rank that runs it: the mode passes each DTensor-level op
+on to DTensor (it returns ``NotImplemented`` for it) and records the ops
+DTensor then runs on the rank's local tensors and the collectives it
+issues; DTensor's sharding propagation, which runs ops on fake tensors of
+the global shapes, is not recorded.  The live bytes are the rank's.  A
+port kernel (``kernels/``) is one entry of the record, written by the
+wrapper through
 :func:`port_kernel` on meta and on CUDA tensors alike, with the bytes and
 operations of ``kernels/checks.py``'s bound (the ops a wrapper runs
 around its launch, its outputs' allocation, are not recorded).
@@ -40,6 +48,7 @@ import weakref
 from typing import Callable, Dict
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import flop_registry
@@ -85,6 +94,11 @@ def tensor_bytes(t: torch.Tensor) -> int:
 
 def _tensors(x):
     return [t for t in tree_leaves(x) if isinstance(t, torch.Tensor)]
+
+
+def _locals(x):
+    """The tensors of ``x``, a DTensor as this rank's local tensor."""
+    return [getattr(t, "_local_tensor", t) for t in _tensors(x)]
 
 
 def _group_size(func, args, kwargs) -> int:
@@ -150,8 +164,14 @@ class _Recorder(TorchDispatchMode):
             row[k] += v
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented            # recorded as its local ops
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
+        if any(issubclass(t, FakeTensor) for t in types) or any(
+                isinstance(t, FakeTensor) for t in _tensors(out)):
+            return out                       # DTensor's propagation
         outs = _tensors(out)
         for t in outs:
             self.track(t)
@@ -242,7 +262,7 @@ def _record(fn, args, kwargs) -> dict:
     devs = [t.device.type for t in _tensors((args, kwargs))]
     device_type = devs[0] if devs else "cpu"
     rec = _Recorder(device_type)
-    for t in _tensors((args, kwargs)):
+    for t in _locals((args, kwargs)):
         rec.track(t)
     arg_bytes = rec.live
     _ACTIVE.stack.append(rec)

@@ -1,10 +1,12 @@
 """Per-cell sharding assembly (the port of ``launch/shardings.py``):
 params (TP, or TP + FSDP for training), batch, cache and optimizer state,
 as trees of ``NamedSharding`` on a mesh (a description or one with a
-DeviceMesh)."""
+DeviceMesh); and :func:`sharded_step_for`, the cell's step over DTensors
+placed by them (the JAX dry run's ``jax.jit(step, in_shardings=...)``),
+with :func:`place_inputs` to lay its inputs out."""
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 from ..configs.base import ModelConfig
 from ..distributed.sharding import DEFAULT_RULES, Mesh, NamedSharding, P, \
@@ -105,3 +107,75 @@ def _replicated_like(param_sh):
     leaf = tree_leaves(param_sh)[0]
     return NamedSharding(leaf.mesh, P())
 
+
+
+def cell_shardings(cfg: ModelConfig, shape, mesh: Mesh) -> Dict:
+    """The shardings of the cell's step inputs: ``params``, ``batch`` and
+    ``opt_state`` (train) or ``cache`` (prefill, decode), as JAX's dry run
+    gives them to ``jax.jit``."""
+    from ..models import api, transformer as tf
+    defs = tf.model_defs(cfg)
+    out = {"params": params_shardings(defs, mesh, shape.kind),
+           "batch": batch_shardings(api.batch_struct(cfg, shape), mesh)}
+    if shape.kind == "train":
+        out["opt_state"] = opt_shardings(out["params"])
+    else:
+        out["cache"] = cache_shardings(api.cache_struct(cfg, shape), cfg,
+                                       mesh)
+    return out
+
+
+def place_inputs(cfg: ModelConfig, shape, mesh: Mesh, device="cpu",
+                 **inputs) -> Dict:
+    """``params``, ``batch``, ``cache`` and ``opt_state`` (any of them:
+    trees of numpy arrays or tensors, whole on every rank) as DTensors on
+    ``mesh``'s DeviceMesh under :func:`cell_shardings`: each rank keeps
+    only its own block (``convert.to_dtensors``).  A cache's ``index``
+    stays a host integer."""
+    from ..convert import to_dtensors
+    sh = cell_shardings(cfg, shape, mesh)
+    return {k: to_dtensors(v, sh[k], device) for k, v in inputs.items()}
+
+
+def sharded_step_for(cfg: ModelConfig, shape, mesh: Mesh, *,
+                     n_micro: int = 1, opt_cfg=None):
+    """The cell's step (``models/api.py::step_fn_for``: a full train step
+    of ``n_micro`` microbatches, a prefill or a decode step) over DTensors
+    placed on ``mesh`` by :func:`cell_shardings`, run inside
+    ``sharding.sharded_step`` with the default activation rules, as JAX's
+    dry run jits it under ``use_mesh``.  No adapters, as there.  The
+    train step returns its parameters and state in their input
+    placements; a serve step returns the logits over (``batch``,
+    ``seq``, ``vocab``) and the new cache in the cache's placements."""
+    from ..distributed.sharding import sharded_step
+    from ..models import api
+    from ..training.step import make_train_step
+    if mesh.device_mesh is None:
+        raise ValueError("the sharded step needs a mesh over a process "
+                         "group (launch.mesh.device_mesh)")
+    if shape.kind == "train":
+        fn = make_train_step(cfg, opt_cfg, n_micro=n_micro)
+    else:
+        fn = api.step_fn_for(cfg, shape)
+
+    def step(*args):
+        with sharded_step(mesh):
+            out = fn(*args)
+            # the output shardings: the state as it came in
+            if shape.kind == "train":
+                return (_placed_as(out[0], args[0]),
+                        _placed_as(out[1], args[1]), out[2])
+            return out[0], _placed_as(out[1], args[2])
+
+    return step
+
+
+def _placed_as(tree, like):
+    """``tree`` with each DTensor leaf in the placements of the leaf at the
+    same place of ``like`` (JAX's ``out_shardings``)."""
+    if isinstance(tree, dict):
+        return {k: _placed_as(v, like[k]) for k, v in tree.items()}
+    if hasattr(tree, "placements") and hasattr(like, "placements") and \
+            tuple(tree.placements) != tuple(like.placements):
+        return tree.redistribute(like.device_mesh, like.placements)
+    return tree

@@ -14,8 +14,16 @@ softmax and returns only the new token's K/V, which the caller splices
 into the stacked cache once a step (``transformer.forward``);
 ``seq_shard`` runs ``distributed/collectives.py``'s sequence-sharded
 step under a mesh whose model axis the KV heads do not divide, and the
-gather branch otherwise.  The model code runs replicated over a mesh: the
-JAX module's sharding constraints have no counterpart here.
+gather branch otherwise.
+
+Activations carry the JAX module's logical sharding constraints
+(``distributed/sharding.py::constrain``), which act inside the sharded
+step (``sharding.sharded_step``: parameters, batch and cache as DTensors)
+and leave plain tensors alone outside it.  There the attention proper,
+the cache writes, the ``lazy`` branch's kernel, the ``seq_shard`` step,
+the lookup into the vocab-sharded table and the vocab-sharded
+cross-entropy run on each rank's own block (``sharding.island_locals`` /
+``island_out``).
 """
 from __future__ import annotations
 
@@ -24,7 +32,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..distributed import collectives
-from ..distributed.sharding import current_mesh
+from ..distributed import sharding as shd
+from ..distributed.sharding import constrain, current_mesh
 from ..kernels.flash_decode import flash_decode
 from . import lora as lora_mod
 from .param import ParamDef
@@ -155,7 +164,12 @@ def _scale_like(x: torch.Tensor, c: float) -> torch.Tensor:
 def naive_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool, q_offset=0, kv_len=None,
                     sliding_window: int = 0) -> torch.Tensor:
-    """Reference attention. q: (B,Sq,H,hd); k,v: (B,Skv,Kv,hd)."""
+    """Reference attention. q: (B,Sq,H,hd); k,v: (B,Skv,Kv,hd).  On
+    DTensors, on each rank's own heads (:func:`_attention_island`)."""
+    if shd.is_dtensor(q):
+        return _attention_island(naive_attention, q, k, v, causal=causal,
+                                 q_offset=q_offset, kv_len=kv_len,
+                                 sliding_window=sliding_window)
     B, Sq, H, hd = q.shape
     Skv, Kv = k.shape[1], k.shape[2]
     G = H // Kv
@@ -177,7 +191,13 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       sliding_window: int = 0) -> torch.Tensor:
     """Flash-style online-softmax attention in plain torch ops (a loop over
     query and KV chunks).  Memory is O(chunk_q * chunk_kv) per (batch,
-    head) instead of O(Sq * Skv)."""
+    head) instead of O(Sq * Skv).  On DTensors, on each rank's own heads
+    (:func:`_attention_island`)."""
+    if shd.is_dtensor(q):
+        return _attention_island(chunked_attention, q, k, v, causal=causal,
+                                 chunk_q=chunk_q, chunk_kv=chunk_kv,
+                                 q_offset=q_offset, kv_len=kv_len,
+                                 sliding_window=sliding_window)
     B, Sq, H, hd = q.shape
     Skv, Kv = k.shape[1], k.shape[2]
     G = H // Kv
@@ -279,6 +299,52 @@ def two_part_decode_attention(q, cache_k, cache_v, k_new, v_new, idx):
     return out.reshape(B, 1, H, hd).to(q.dtype)
 
 
+def _attention_island(fn, q, k, v, **kw):
+    """``fn`` (:func:`naive_attention` or :func:`chunked_attention`) on
+    each rank's own heads of DTensors q, k, v (``sharding.head_blocks``:
+    the batch as q's, the sequences whole, q's heads over "model" where it
+    divides them and the kv heads those heads read): DTensor cannot carry
+    the attention's head-grouping views and batched products."""
+    pl_q, pl_kv, narrow = shd.head_blocks(q, k)
+    q_l, k_l, v_l = shd.island_locals((q, pl_q), (k, pl_kv), (v, pl_kv))
+    if narrow is not None:
+        k_l, v_l = (t.narrow(2, *narrow) for t in (k_l, v_l))
+    return shd.island_out(fn(q_l, k_l, v_l, **kw), q, pl_q, q.shape)
+
+
+def _lazy_island(q, cache_k, cache_v, k_new, v_new, idx):
+    """:func:`two_part_decode_attention` on each rank's own block of
+    DTensors (``sharding.head_blocks``: the cache with its sequence whole,
+    its batch and, where the model axis divides them, its kv heads as
+    q's; q's own heads and the kv heads they read).  On a CUDA tensor row
+    1 (``flash_decode``) runs on these local blocks."""
+    pl_q, pl_kv, narrow = shd.head_blocks(q, cache_k)
+    q_l = shd.island_local(q, pl_q)
+    kv = [shd.island_local(t, pl_kv)
+          for t in (cache_k, cache_v, k_new, v_new)]
+    if narrow is not None:
+        kv = [t.narrow(2, *narrow) for t in kv]
+    out = two_part_decode_attention(q_l, *kv[:2], *kv[2:], idx)
+    return shd.island_out(out, q, pl_q, q.shape)
+
+
+def _seq_shard_island(q, cache_k, cache_v, k_new, v_new, idx, mesh):
+    """``collectives.seq_sharded_decode_step`` on each rank's own block of
+    DTensors: the rank's slice of the sequence of a copy of the cache, q
+    and the new token whole over the model axis (the step's layout)."""
+    from torch.distributed.tensor import Replicate, Shard
+    pl_c = list(cache_k.placements)
+    pl_q = shd.replace_placements(pl_c, lambda i, p: p if (
+        isinstance(p, Shard) and p.dim == 0) else Replicate())
+    ck, cv = (t.to_local().clone() for t in (cache_k, cache_v))
+    q_l, kn, vn = (shd.island_local(t, pl_q) for t in (q, k_new, v_new))
+    out, ck, cv = collectives.seq_sharded_decode_step(q_l, ck, cv, kn, vn,
+                                                      idx, mesh)
+    return (shd.island_out(out, q, pl_q, q.shape),
+            shd.island_out(ck, cache_k, pl_c, cache_k.shape),
+            shd.island_out(cv, cache_v, pl_c, cache_v.shape))
+
+
 def attention_fwd(p: Dict, x: torch.Tensor, cfg, *,
                   positions: torch.Tensor,
                   mode: str = "prefill",   # train | prefill | decode
@@ -304,45 +370,63 @@ def attention_fwd(p: Dict, x: torch.Tensor, cfg, *,
     cos, sin = rope_tables(positions, hd, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
+    mesh = current_mesh()
+    tp = mesh.shape.get("model", 1) if mesh is not None else 1
+    # the JAX module's context-parallel fallback: heads that do not divide
+    # the model axis shard the attention over the sequence instead
+    use_cp = (cfg.attn_cp_fallback and tp > 1 and cfg.num_heads % tp != 0
+              and mode != "decode" and S % tp == 0)
+    if use_cp:
+        q = constrain(q, "batch", "seq_sp", "heads", "head_dim")
+    else:
+        q = constrain(q, "batch", "seq", "heads", "head_dim")
+    # v as JAX's context-parallel branch holds it, on both branches: it
+    # leaves the layer input's sequence sharding (the carry's "seq_sp"),
+    # which DTensor cannot carry through the chunked attention's reshapes
+    v = constrain(v, "batch", "seq", "kv_heads", "head_dim")
+    k = constrain(k, "batch", "seq", "kv_heads", "head_dim")
     if mode == "train":
         keys, vals, kv_len, q_offset, new_cache = k, v, None, 0, None
     elif cache is None:
         raise ValueError("attention_fwd needs a cache in prefill/decode")
     elif mode == "prefill":
-        keys = cache["k"].clone()
-        vals = cache["v"].clone()
-        keys[:, :S] = k.to(keys.dtype)
-        vals[:, :S] = v.to(vals.dtype)
+        keys = shd.write_slice(cache["k"], k, 0, 1)
+        vals = shd.write_slice(cache["v"], v, 0, 1)
         new_cache = {"k": keys, "v": vals, "index": S}
         keys, vals, kv_len, q_offset = k, v, None, 0   # within prompt only
     elif mode == "decode":
         idx = int(cache["index"])
-        mesh = current_mesh()
-        tp = mesh.shape.get("model", 1) if mesh is not None else 1
+        sharded = shd.is_dtensor(q)
         if (cfg.decode_attn == "seq_shard" and S == 1 and tp > 1
-                and cfg.num_kv_heads % tp != 0):
+                and cfg.num_kv_heads % tp != 0
+                and cache["k"].shape[1] % tp == 0):
             # the JAX condition: the cache is S-sharded over the model
             # axis; update + attention on the rank's slice (the copies
             # keep the caller's cache unmutated, as the gather branch does)
-            out, keys, vals = collectives.seq_sharded_decode_step(
-                q, cache["k"].clone(), cache["v"].clone(), k, v, idx, mesh)
+            if sharded:
+                out, keys, vals = _seq_shard_island(
+                    q, cache["k"], cache["v"], k, v, idx, mesh)
+            else:
+                out, keys, vals = collectives.seq_sharded_decode_step(
+                    q, cache["k"].clone(), cache["v"].clone(), k, v, idx,
+                    mesh)
             return _out_proj(p, out, lora_ctx), {"k": keys, "v": vals,
                                                  "index": idx + S}
         if cfg.decode_attn == "lazy" and S == 1:
-            out = two_part_decode_attention(q, cache["k"], cache["v"], k, v,
-                                            idx)
+            out = (_lazy_island if sharded else two_part_decode_attention)(
+                q, cache["k"], cache["v"], k, v, idx)
             return _out_proj(p, out, lora_ctx), {
                 "k": k.to(cache["k"].dtype), "v": v.to(cache["v"].dtype),
                 "index": idx + S}
         # a write past the end lands on the last S slots, as XLA's
         # dynamic_update_slice clamps its start index
         w = min(idx, cache["k"].shape[1] - S)
-        keys = cache["k"].clone()
-        vals = cache["v"].clone()
-        keys[:, w:w + S] = k.to(keys.dtype)
-        vals[:, w:w + S] = v.to(vals.dtype)
+        keys = shd.write_slice(cache["k"], k, w, 1)
+        vals = shd.write_slice(cache["v"], v, w, 1)
         new_cache = {"k": keys, "v": vals, "index": idx + S}
         kv_len, q_offset = idx + S, idx
+        keys = constrain(keys, "batch", "kv_seq", "kv_heads", "head_dim")
+        vals = constrain(vals, "batch", "kv_seq", "kv_heads", "head_dim")
     else:
         raise ValueError(mode)
     use_chunks = (cfg.attn_chunk_q > 0 and mode != "decode"
@@ -363,10 +447,11 @@ def attention_fwd(p: Dict, x: torch.Tensor, cfg, *,
 def _out_proj(p: Dict, out: torch.Tensor, lora_ctx) -> torch.Tensor:
     """(B, S, H, hd) attention output through ``wo`` and the o adapter."""
     B, S = out.shape[:2]
-    y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    out = constrain(out, "batch", "seq", "heads", "head_dim")
+    y = shd.whole_grad(torch.einsum("bshk,hkd->bsd", out, p["wo"]))
     if lora_ctx is not None:
         y = lora_mod.apply(lora_ctx, "o", out.reshape(B, S, -1), y)
-    return y
+    return constrain(y, "batch", "seq", "d_model")
 
 
 def cross_attention_fwd(p: Dict, x: torch.Tensor, memory: torch.Tensor, cfg,
@@ -383,7 +468,7 @@ def cross_attention_fwd(p: Dict, x: torch.Tensor, memory: torch.Tensor, cfg,
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
     out = naive_attention(q, k, v, causal=False)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    return shd.whole_grad(torch.einsum("bshk,hkd->bsd", out, p["wo"]))
 
 
 # ---------------------------------------------------------------------------
@@ -403,7 +488,8 @@ def mlp_fwd(p: Dict, x: torch.Tensor) -> torch.Tensor:
     g = torch.einsum("bsd,df->bsf", x, p["w_gate"])
     u = torch.einsum("bsd,df->bsf", x, p["w_up"])
     h = torch.nn.functional.silu(g.float()).to(x.dtype) * u
-    return torch.einsum("bsf,fd->bsd", h, p["w_down"])
+    h = constrain(h, "batch", "seq", "d_ff")
+    return shd.whole_grad(torch.einsum("bsf,fd->bsd", h, p["w_down"]))
 
 
 # ---------------------------------------------------------------------------
@@ -423,7 +509,37 @@ def embedding_defs(cfg) -> Dict:
 
 
 def embed_tokens(p: Dict, tokens: torch.Tensor) -> torch.Tensor:
-    return p["embed"][tokens]
+    E = shd.unshard_batch_axes(p["embed"])
+    x = _embed_island(E, tokens) if shd.is_dtensor(E) else E[tokens]
+    return constrain(x, "batch", "seq", "d_model")
+
+
+def _embed_island(E, tokens):
+    """The lookup on each rank's own rows of a vocab-sharded table: a token
+    outside them gives zeros, and the rows sum over the model axis (one
+    nonzero term: exact) when the result is constrained; DTensor has no
+    backward for a lookup into a sharded table."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    pl_t = shd.replace_placements(tokens.placements, lambda i, p: p if (
+        isinstance(p, Shard) and p.dim == 0) else Replicate())
+    pl_e = list(E.placements)
+    e_l, t_l = shd.island_locals((E, pl_e), (tokens, pl_t))
+    rows = e_l.shape[0]
+    t = t_l.long() - shd.global_offset(E, 0)
+    inside = (t >= 0) & (t < rows)
+    x = torch.where(inside[..., None], e_l[t.clamp(0, rows - 1)],
+                    torch.zeros((), dtype=e_l.dtype, device=e_l.device))
+    pl_x = [Partial() if isinstance(pe, Shard) else pt
+            for pe, pt in zip(pl_e, pl_t)]
+    return shd.island_out(x, E, pl_x, tuple(tokens.shape) + (E.shape[1],))
+
+
+def _seq_whole(h: torch.Tensor) -> torch.Tensor:
+    """``h`` (B, S, d) with its sequence whole, before work sharded over
+    the model axis (a block's, the unembedding): the layer boundary holds
+    it over that axis, and DTensor cannot flatten a batch and a sequence
+    sharded at once."""
+    return constrain(h, "batch", "seq", "d_model")
 
 
 def _unembed_matrix(p: Dict, cfg) -> torch.Tensor:
@@ -433,8 +549,10 @@ def _unembed_matrix(p: Dict, cfg) -> torch.Tensor:
 def logits_fwd(p: Dict, h: torch.Tensor, cfg) -> torch.Tensor:
     """Logits over the whole ``cfg.padded_vocab``, padding unmasked, as in
     the JAX package (so argmax streams stay comparable)."""
-    h = rms_norm(h, p["final_norm"], cfg.norm_eps)
-    return torch.einsum("bsd,dv->bsv", h, _unembed_matrix(p, cfg))
+    p = shd.unshard_batch_axes(p)
+    h = _seq_whole(rms_norm(h, p["final_norm"], cfg.norm_eps))
+    logits = torch.einsum("bsd,dv->bsv", h, _unembed_matrix(p, cfg))
+    return constrain(logits, "batch", "seq", "vocab")
 
 
 def cross_entropy(p: Dict, h: torch.Tensor, targets: torch.Tensor, cfg,
@@ -446,29 +564,18 @@ def cross_entropy(p: Dict, h: torch.Tensor, targets: torch.Tensor, cfg,
     sums run over the same pieces; as there, each chunk's logits are taken
     in the model dtype and then cast to f32, and the target logit is an f32
     product of ``h`` and the target's unembedding column."""
-    h = rms_norm(h, p["final_norm"], cfg.norm_eps)
+    p = shd.unshard_batch_axes(p)
+    h = _seq_whole(rms_norm(h, p["final_norm"], cfg.norm_eps))
     W = _unembed_matrix(p, cfg)                   # (d, Vp)
+    if shd.is_dtensor(h):
+        return _cross_entropy_island(h, W, targets, cfg, mask)
     Vp = W.shape[1]
     tgt = torch.clamp(targets, 0, Vp - 1).long()
     if mask is None:
         mask = (targets >= 0).float()
-    chunk = cfg.logits_chunk_vocab
-    if chunk and Vp > chunk:
-        # pick the smallest chunk count >= Vp/target that divides Vp
-        n = -(-Vp // chunk)
-        while Vp % n and n < min(Vp, 4096):
-            n += 1
-        chunk = Vp // n if Vp % n == 0 else 0
-    if chunk and Vp % chunk == 0 and Vp > chunk:
-        m = torch.full(h.shape[:2], NEG_INF, device=h.device)
-        l = torch.zeros(h.shape[:2], device=h.device)
-        for i in range(Vp // chunk):
-            lg = torch.einsum("bsd,dv->bsv", h,
-                              W[:, i * chunk:(i + 1) * chunk]).float()
-            m_new = torch.maximum(m, lg.amax(dim=-1))
-            l = l * torch.exp(m - m_new) + torch.exp(
-                lg - m_new[..., None]).sum(-1)
-            m = m_new
+    chunk = _vocab_chunk(Vp, cfg.logits_chunk_vocab)
+    if chunk:
+        m, l = _online_lse(h, W, chunk)
         lse = m + torch.log(torch.clamp(l, min=1e-30))
         tgt_logit = torch.einsum("bsd,bsd->bs", h.float(),
                                  W.T[tgt].float())
@@ -477,4 +584,72 @@ def cross_entropy(p: Dict, h: torch.Tensor, targets: torch.Tensor, cfg,
         lse = torch.logsumexp(logits, dim=-1)
         tgt_logit = torch.gather(logits, -1, tgt[..., None])[..., 0]
     nll = (lse - tgt_logit) * mask
+    return torch.sum(nll) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def _vocab_chunk(V: int, chunk: int) -> int:
+    """The width of the vocab chunks the JAX module takes over ``V``
+    columns for ``cfg.logits_chunk_vocab = chunk``: ``V`` over the
+    smallest chunk count >= V / chunk that divides ``V``; 0 where the
+    logits are taken at once."""
+    if not chunk or V <= chunk:
+        return 0
+    n = -(-V // chunk)
+    while V % n and n < min(V, 4096):
+        n += 1
+    return V // n if V % n == 0 else 0
+
+
+def _online_lse(h: torch.Tensor, W: torch.Tensor, chunk: int):
+    """The logsumexp over ``W``'s columns of each token's logits, chunk by
+    chunk (each in the model dtype, then f32): ``(m, l)`` with
+    ``lse = m + log(l)``."""
+    m = torch.full(h.shape[:2], NEG_INF, device=h.device)
+    l = torch.zeros(h.shape[:2], device=h.device)
+    for i in range(W.shape[1] // chunk):
+        lg = torch.einsum("bsd,dv->bsv", h,
+                          W[:, i * chunk:(i + 1) * chunk]).float()
+        m_new = torch.maximum(m, lg.amax(dim=-1))
+        l = l * torch.exp(m - m_new) + torch.exp(
+            lg - m_new[..., None]).sum(-1)
+        m = m_new
+    return m, l
+
+
+def _cross_entropy_island(h, W, targets, cfg, mask):
+    """:func:`cross_entropy` on DTensors, each rank over its own tokens and
+    its own slice of the vocab (``W`` over "model" as the vocab rule puts
+    it): :func:`_online_lse` over the slice in the chunks
+    :func:`_vocab_chunk` picks for it (one chunk where it picks none),
+    then the ranks' (max, sum) and target logits merged over the model
+    axis, as the vocab-sharded logits JAX constrains are reduced.  The
+    token mean is taken on DTensors."""
+    from torch.distributed.tensor import Replicate, Shard
+    pl_h = shd.replace_placements(h.placements, lambda i, p: p if (
+        isinstance(p, Shard) and p.dim == 0) else Replicate())
+    pl_w = shd.replace_placements(W.placements, lambda i, p: p if (
+        isinstance(p, Shard) and p.dim == 1) else Replicate())
+    tg = targets if shd.is_dtensor(targets) else shd.island_out(
+        targets, h, [Replicate()] * len(pl_h))
+    h_l, w_l, t_l = shd.island_locals((h, pl_h), (W, pl_w), (tg, pl_h))
+    cols, v0 = w_l.shape[1], shd.global_offset(W, 1)
+    m, l = _online_lse(h_l, w_l,
+                       _vocab_chunk(cols, cfg.logits_chunk_vocab) or cols)
+    t = torch.clamp(t_l, 0, W.shape[1] - 1).long() - v0
+    inside = (t >= 0) & (t < cols)
+    col = w_l.T[t.clamp(0, cols - 1)].float()              # (b, s, d)
+    tgt_logit = torch.where(inside, torch.einsum(
+        "bsd,bsd->bs", h_l.float(), col), torch.zeros((), device=col.device))
+    md = shd.mesh_dim(W, "model")
+    if isinstance(pl_w[md] if md is not None else None, Shard):
+        group = W.device_mesh.get_group("model")
+        m_all = shd.max_over_ranks(m, group)
+        l = shd.SumOverRanks.apply(l * torch.exp(m - m_all), group)
+        tgt_logit = shd.SumOverRanks.apply(tgt_logit, group)
+        m = m_all
+    lse = m + torch.log(torch.clamp(l, min=1e-30))
+    nll = shd.island_out(lse - tgt_logit, h, pl_h, tuple(h.shape[:2]))
+    if mask is None:
+        mask = (targets >= 0).float()
+    nll = nll * mask
     return torch.sum(nll) / torch.clamp(torch.sum(mask), min=1.0)

@@ -13,6 +13,11 @@ plus routed top-k experts.
   ``bucket_offset`` window), and a sum all-reduce over ``model`` adds the
   ranks' parts.
 
+Inside the sharded step (DTensors, ``distributed/sharding.py``)
+``_moe_ep`` runs on each rank's own blocks, as JAX's ``shard_map`` runs
+its body (:func:`_moe_ep_island`): the tokens over the batch axes and
+whole over ``model``, the expert weights over ``model`` alone.
+
 Token dropping follows the static-capacity discipline (``capacity_factor``
 in the config); dropped tokens fall through on the residual.
 """
@@ -24,7 +29,8 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..distributed.sharding import current_mesh
+from ..distributed import sharding as shd
+from ..distributed.sharding import constrain, current_mesh
 from .layers import mlp_defs, mlp_fwd
 from .param import ParamDef
 
@@ -111,7 +117,9 @@ def _dispatch(x: torch.Tensor, topi: torch.Tensor, capacity: int,
     eid = torch.where(inside, flat, torch.full_like(flat, n_buckets))
     order = torch.argsort(eid, stable=True)
     sorted_e = eid[order]
-    counts = torch.bincount(eid, minlength=n_buckets + 1)
+    # bincount as a scatter-add (the same counts; it also runs on meta)
+    counts = torch.zeros(n_buckets + 1, dtype=eid.dtype,
+                         device=dev).scatter_add_(0, eid, torch.ones_like(eid))
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(T * k, device=dev) - starts[sorted_e]
     slot_sorted = torch.where((pos < capacity) & (sorted_e < n_buckets),
@@ -193,8 +201,39 @@ def _moe_ep(p: Dict, x: torch.Tensor, topw: torch.Tensor,
     y_buf = _expert_ffn(buf, wg, wu, wd)
     y = _combine(y_buf, eid, slot, valid, topw)
     if M > 1:
-        torch.distributed.all_reduce(y, group=mesh.group("model"))
+        y = shd.SumOverRanks.apply(y, mesh.group("model"))
     return y
+
+
+def _moe_ep_island(p: Dict, x: torch.Tensor, topw: torch.Tensor,
+                   topi: torch.Tensor, cfg, mesh) -> torch.Tensor:
+    """:func:`_moe_ep` on each rank's blocks of DTensors (JAX's in_specs:
+    tokens over the batch axes, the experts or ``expert_ff`` over
+    ``model``); returns the (T, d) DTensor over the batch axes."""
+    from torch.distributed.tensor import Replicate, Shard
+    dm = x.device_mesh
+    names = dm.mesh_dim_names
+    n_batch = 1
+    for i, a in enumerate(names):
+        if a != "model":
+            n_batch *= dm.size(i)
+    tok = Shard(0) if x.shape[0] % n_batch == 0 else Replicate()
+    pl_x = [Replicate() if a == "model" else tok for a in names]
+    E, M = cfg.moe.num_experts, mesh.shape.get("model", 1)
+
+    def over_model(dim):
+        return [Shard(dim) if a == "model" and M > 1 else Replicate()
+                for a in names]
+
+    experts = E % M == 0 and M > 1
+    w_pl = {"w_gate": over_model(0 if experts else 2),
+            "w_up": over_model(0 if experts else 2),
+            "w_down": over_model(0 if experts else 1)}
+    *w, x_l, w_l, i_l = shd.island_locals(
+        *((p[k], w_pl[k]) for k in w_pl), (x, pl_x), (topw, pl_x),
+        (topi, pl_x))
+    y = _moe_ep(dict(zip(w_pl, w)), x_l, w_l, i_l, cfg, mesh)
+    return shd.island_out(y, x, pl_x, x.shape)
 
 
 def moe_fwd(p: Dict, x: torch.Tensor, cfg
@@ -205,10 +244,11 @@ def moe_fwd(p: Dict, x: torch.Tensor, cfg
     topw, topi, aux = _route(p, xt, cfg)
     mesh = current_mesh()
     if mesh is not None and "model" in mesh.axis_names:
-        y = _moe_ep(p, xt, topw, topi, cfg, mesh)
+        ep = _moe_ep_island if shd.is_dtensor(xt) else _moe_ep
+        y = ep(p, xt, topw, topi, cfg, mesh)
     else:
         y = _moe_dense(p, xt, topw, topi, cfg)
     y = y.reshape(B, S, d)
     if cfg.moe.num_shared:
         y = y + mlp_fwd(p["shared"], x)
-    return y, aux
+    return constrain(y, "batch", "seq", "d_model"), aux

@@ -5,6 +5,11 @@ The chunked SSD formulation (arXiv:2405.21060 §6): the intra-chunk terms
 are plain einsums, the inter-chunk recurrence a short Python loop over
 chunk states.  Decode is an O(1) recurrent state update: the "KV cache"
 of an SSM layer is its fixed-size conv window and state.
+
+Inside the sharded step (DTensors, ``distributed/sharding.py``) the
+activations carry the JAX module's constraints, the scan and the decode
+recurrence run on each rank's own heads, and the causal conv runs on its
+x, B and C parts apart (the same numbers) so that x keeps its sharding.
 """
 from __future__ import annotations
 
@@ -14,6 +19,9 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..distributed.sharding import (constrain, head_blocks, is_dtensor,
+                                     island_locals, island_out, mesh_dim,
+                                     whole_grad)
 from . import lora as lora_mod
 from .layers import rms_norm
 from .param import ParamDef
@@ -106,7 +114,8 @@ def _check_ssm_in(lora_ctx, di: int) -> None:
 
 
 def _project(p: Dict, x: torch.Tensor, cfg, lora_ctx):
-    """x: (B,S,d) -> z (B,S,di), xbc (B,S,di+2GN), dt (B,S,H)."""
+    """x: (B,S,d) -> z (B,S,di), the conv's input in its three parts (x
+    (B,S,di), B and C (B,S,GN)) and dt (B,S,H)."""
     z = torch.einsum("bsd,de->bse", x, p["wz"])
     xs = torch.einsum("bsd,de->bse", x, p["wx"])
     if lora_ctx is not None:
@@ -116,8 +125,23 @@ def _project(p: Dict, x: torch.Tensor, cfg, lora_ctx):
     cc = torch.einsum("bsd,de->bse", x, p["wC"])
     dt = torch.einsum("bsd,dh->bsh", x, p["wdt"]).float()
     dt = F.softplus(dt + p["dt_bias"].float())
-    xbc = torch.cat([xs, bb, cc], dim=-1)
-    return z, xbc, dt
+    return z, (xs, bb, cc), dt
+
+
+def _conv_parts(parts, w: torch.Tensor):
+    """:func:`_causal_conv` over the parts' concatenation, part by part (a
+    depthwise conv: each channel alike), so that the x part keeps its
+    sharding over the model axis in the sharded step, where a concatenation
+    with the replicated B and C would replicate it.  Returns (the parts'
+    outputs, the concatenation's new conv state)."""
+    outs, states, o = [], [], 0
+    for t in parts:
+        n = t.shape[-1]
+        out, st = _causal_conv(t, w[:, o:o + n])
+        outs.append(out)
+        states.append(st)
+        o += n
+    return outs, torch.cat(states, dim=-1)
 
 
 def _split_xbc(xbc: torch.Tensor, cfg):
@@ -141,9 +165,13 @@ def ssd_scan(xh: torch.Tensor, bg: torch.Tensor, cg: torch.Tensor,
              init_state: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Chunked SSD.  xh: (B,S,H,P); bg/cg: (B,S,G,N); dt: (B,S,H);
-    A: (H,) < 0.
+    A: (H,) < 0.  On DTensors, on each rank's own heads
+    (:func:`_ssd_island`).
 
     Returns (y (B,S,H,P) f32, final_state (B,H,N,P) f32)."""
+    if is_dtensor(xh):
+        return _ssd_island(lambda *a: ssd_scan(*a[:5], chunk, a[5]), xh,
+                           bg, cg, dt, A, init_state)
     B, S, H, P = xh.shape
     G, N = bg.shape[2], bg.shape[3]
     hpg = H // G
@@ -192,8 +220,37 @@ def ssd_scan(xh: torch.Tensor, bg: torch.Tensor, cg: torch.Tensor,
     return y, state.reshape(B, H, N, P)
 
 
+def _ssd_island(fn, xh, bg, cg, dt, A, state):
+    """``fn(xh, bg, cg, dt, A, state)`` (:func:`ssd_scan` or
+    :func:`ssd_decode_step`) on each rank's own heads of DTensors
+    (``sharding.head_blocks``: the groups as a GQA's kv heads; the batch as
+    xh's), returning (y, state) over the same heads: DTensor cannot carry
+    the scan's head-grouping views and batched products."""
+    from torch.distributed.tensor import Replicate, Shard
+    pl_x, pl_g, narrow = head_blocks(xh, bg)
+    md = mesh_dim(xh, "model")
+    heads = md is not None and isinstance(pl_x[md], Shard)
+    pl_a = [Shard(0) if heads and i == md else Replicate()
+            for i in range(len(pl_x))]
+    pl_s = [Shard(1) if heads and i == md else p
+            for i, p in enumerate(pl_x)]
+    pairs = [(xh, pl_x), (bg, pl_g), (cg, pl_g), (dt, pl_x), (A, pl_a)]
+    if state is not None:
+        pairs.append((state, pl_s))
+    loc = island_locals(*pairs)
+    if narrow is not None:
+        loc[1], loc[2] = (t.narrow(2, *narrow) for t in loc[1:3])
+    y, st = fn(*loc[:5], loc[5] if state is not None else None)
+    B, H, P = xh.shape[0], xh.shape[2], xh.shape[3]
+    return (island_out(y, xh, pl_x, xh.shape),
+            island_out(st, xh, pl_s, (B, H, bg.shape[3], P)))
+
+
 def ssd_decode_step(xh, bg, cg, dt, A, state):
-    """Single-token recurrence.  xh: (B,1,H,P) etc.  state: (B,H,N,P)."""
+    """Single-token recurrence.  xh: (B,1,H,P) etc.  state: (B,H,N,P).
+    On DTensors, on each rank's own heads (:func:`_ssd_island`)."""
+    if is_dtensor(xh):
+        return _ssd_island(ssd_decode_step, xh, bg, cg, dt, A, state)
     H = xh.shape[2]
     hpg = H // bg.shape[2]
     xf = xh[:, 0].float()                              # (B,H,P)
@@ -216,12 +273,13 @@ def ssm_block_fwd(p: Dict, x: torch.Tensor, cfg, *, mode: str = "train",
     B, S, _ = x.shape
     s = cfg.ssm
     A = -torch.exp(p["A_log"].float())
-    z, xbc, dt = _project(p, x, cfg, lora_ctx)
+    z, parts, dt = _project(p, x, cfg, lora_ctx)
 
     new_cache = None
     if mode == "decode":
         if cache is None:
             raise ValueError("ssm decode needs a cache")
+        xbc = torch.cat(parts, dim=-1)
         full = torch.cat([cache.conv.to(xbc.dtype), xbc], dim=1)
         conv_out = torch.einsum("bkw,kw->bw", full[:, -s.d_conv:, :],
                                 p["conv_w"])
@@ -232,8 +290,10 @@ def ssm_block_fwd(p: Dict, x: torch.Tensor, cfg, *, mode: str = "train",
             conv=full[:, -(s.d_conv - 1):, :].to(cache.conv.dtype),
             state=new_state, index=cache.index + 1)
     else:
-        conv_out, conv_state = _causal_conv(xbc, p["conv_w"])
-        xh, bg, cg = _split_xbc(conv_out, cfg)
+        (xs, bs, cs), conv_state = _conv_parts(parts, p["conv_w"])
+        xh = xs.reshape(B, S, s.n_heads(cfg.d_model), s.head_dim)
+        bg, cg = (t.reshape(B, S, s.n_groups, s.d_state) for t in (bs, cs))
+        xh = constrain(xh, "batch", "seq", "ssm_heads", None)
         y, final_state = ssd_scan(xh, bg, cg, dt, A, s.chunk)
         if mode == "prefill":
             if cache is None:
@@ -241,10 +301,11 @@ def ssm_block_fwd(p: Dict, x: torch.Tensor, cfg, *, mode: str = "train",
             new_cache = SSMCache(conv=conv_state.to(cache.conv.dtype),
                                  state=final_state, index=S)
     y = y + p["D"].float()[None, None, :, None] * xh.float()
-    y = y.reshape(B, S, -1).to(x.dtype)
-    y = y * F.silu(z.float()).to(x.dtype)
+    y = constrain(y.reshape(B, S, -1).to(x.dtype), "batch", "seq", "d_ff")
+    y = y * F.silu(constrain(z, "batch", "seq", "d_ff").float()).to(x.dtype)
     y = rms_norm(y, p["norm"], cfg.norm_eps)
-    out = torch.einsum("bse,ed->bsd", y, p["out_proj"])
+    y = constrain(y, "batch", "seq", "d_ff")
+    out = whole_grad(torch.einsum("bse,ed->bsd", y, p["out_proj"]))
     if lora_ctx is not None:
         out = lora_mod.apply(lora_ctx, "ssm_out", y, out)
-    return out, new_cache
+    return constrain(out, "batch", "seq", "d_model"), new_cache

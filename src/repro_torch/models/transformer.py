@@ -23,6 +23,13 @@ step; every other step leaves the caller's cache as it was):
   (groups, B, S_max, Kv, hd), one KV slice per use of the shared block;
 - audio: ``k``/``v`` and the encoder memory's ``cross_k``/``cross_v``
   (L, B, enc_len, Kv, hd), which prefill fills.
+
+Inside the sharded step (``distributed/sharding.py::sharded_step``) the
+parameters, batch and cache are DTensors: each step's input is held to
+the JAX scan carry's layout (``batch``, ``seq_sp``, ``d_model``), each
+block gathers its own weights over the batch axes first (FSDP, under the
+train rules), and the lazy branch's splice writes each rank's own block
+of the cache.
 """
 from __future__ import annotations
 
@@ -32,9 +39,12 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..distributed import sharding as shd
+from ..distributed.sharding import constrain
 from . import lora as lora_mod
 from .layers import (attention_defs, attention_fwd, cross_attention_fwd,
-                     cross_entropy, embed_tokens, embedding_defs, logits_fwd,
+                     _seq_whole, cross_entropy, embed_tokens, embedding_defs,
+                     logits_fwd,
                      mlp_defs, mlp_fwd, naive_attention, rms_norm)
 from .moe import moe_defs, moe_fwd
 from .param import ParamDef, stacked, tree_map
@@ -186,26 +196,37 @@ def layer_params(tree, li: int):
 # ---------------------------------------------------------------------------
 
 
+def _norm(x, scale, cfg):
+    """A block's normed input with its sequence whole (``_seq_whole``):
+    the layer boundary holds it over the model axis (``_step``,
+    Megatron-SP), and the heads-, d_ff- or expert-sharded work after it
+    needs it gathered, as GSPMD gathers it."""
+    return _seq_whole(rms_norm(x, scale, cfg.norm_eps))
+
+
 def _dense_block(p, x, cfg, *, positions, mode, kv, lora_ctx, causal=True):
-    h, new_kv = attention_fwd(p["attn"], rms_norm(x, p["ln1"], cfg.norm_eps),
+    p = shd.unshard_batch_axes(p)
+    h, new_kv = attention_fwd(p["attn"], _norm(x, p["ln1"], cfg),
                               cfg, positions=positions, mode=mode, cache=kv,
                               lora_ctx=lora_ctx, causal=causal)
     x = x + h
-    x = x + mlp_fwd(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps))
+    x = x + mlp_fwd(p["mlp"], _norm(x, p["ln2"], cfg))
     return x, new_kv
 
 
 def _moe_block(p, x, cfg, *, positions, mode, kv, lora_ctx):
-    h, new_kv = attention_fwd(p["attn"], rms_norm(x, p["ln1"], cfg.norm_eps),
+    p = shd.unshard_batch_axes(p)
+    h, new_kv = attention_fwd(p["attn"], _norm(x, p["ln1"], cfg),
                               cfg, positions=positions, mode=mode, cache=kv,
                               lora_ctx=lora_ctx)
     x = x + h
-    y, aux = moe_fwd(p["moe"], rms_norm(x, p["ln2"], cfg.norm_eps), cfg)
+    y, aux = moe_fwd(p["moe"], _norm(x, p["ln2"], cfg), cfg)
     return x + y, new_kv, aux
 
 
 def _ssm_block(p, x, cfg, *, mode, cache, lora_ctx):
-    h, new_cache = ssm_block_fwd(p["ssm"], rms_norm(x, p["ln1"], cfg.norm_eps),
+    p = shd.unshard_batch_axes(p)
+    h, new_cache = ssm_block_fwd(p["ssm"], _norm(x, p["ln1"], cfg),
                                  cfg, mode=mode, cache=cache,
                                  lora_ctx=lora_ctx)
     return x + h, new_cache
@@ -239,18 +260,29 @@ def _maybe_remat(fn, cfg, mode: str):
     """``fn(x) -> outputs`` recomputed in the backward pass (activation
     checkpointing) when ``cfg.remat`` is set in train mode.  A layer draws
     no random numbers, so the recompute keeps no RNG state (stashing it
-    is host work that differs by device)."""
+    is host work that differs by device).  The recompute runs in the mesh
+    context of the forward (it may run in another thread, where the
+    thread-local context is not set)."""
     if cfg.remat and mode == "train":
-        return lambda x: checkpoint(fn, x, use_reentrant=False,
+        ctx = shd.context()
+
+        def run(x):
+            with shd.use_context(ctx):
+                return fn(x)
+
+        return lambda x: checkpoint(run, x, use_reentrant=False,
                                     preserve_rng_state=False)
     return fn
 
 
 def _step(fn, x, cfg, mode: str):
-    """One scanned step ``fn(x)``: its input through the bf16 gradient
-    boundary (when ``cfg.grad_cast_bf16`` is set), then ``fn`` under
-    remat.  A step may record the cache leaves it makes: remat runs only
-    in train mode, which makes none."""
+    """One scanned step ``fn(x)``: its input held to the layer-boundary
+    layout (Megatron-SP: the sequence over the model axis, outside remat,
+    as the JAX carry) and through the bf16 gradient boundary (when
+    ``cfg.grad_cast_bf16`` is set), then ``fn`` under remat.  A step may
+    record the cache leaves it makes: remat runs only in train mode,
+    which makes none."""
+    x = constrain(x, "batch", "seq_sp", "d_model")
     if cfg.grad_cast_bf16:
         x = _bf16_grad_boundary(x)
     return _maybe_remat(fn, cfg, mode)(x)
@@ -320,6 +352,7 @@ def forward(params: Dict, cfg, *, tokens: Optional[torch.Tensor] = None,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "vlm" and patches is not None:
         x = torch.cat([patches.to(x.dtype), x], dim=1)
+        x = constrain(x, "batch", "seq", "d_model")
     S = x.shape[1]
     index = 0 if mode == "train" else int(cache["index"])
     positions = index + torch.arange(S, dtype=torch.int32, device=x.device)
@@ -398,7 +431,8 @@ def forward(params: Dict, cfg, *, tokens: Optional[torch.Tensor] = None,
         # write lands past every position this step's attention read
         w = min(index, cache["k"].shape[2] - 1)
         for key in ("k", "v"):
-            cache[key][:, :, w:w + 1] = torch.stack(new.pop(key))
+            shd.write_slice(cache[key], torch.stack(new.pop(key)), w, 2,
+                            inplace=True)
     for key, leaves in new.items():
         if cfg.family == "hybrid" and key in ("conv", "state"):
             # (groups * period) layers back to (groups, period, ...)
@@ -427,7 +461,7 @@ def _forward_audio(params, cfg, *, tokens, frames, mode, cache, lp, proto):
                 layer_params(params["enc_layers"], i), h, cfg,
                 positions=pos_e, mode="train", kv=None, lora_ctx=ctx,
                 causal=False)[0], h, cfg, mode)
-        memory = rms_norm(h, params["enc_norm"], cfg.norm_eps)
+        memory = _norm(h, shd.unshard_batch_axes(params["enc_norm"]), cfg)
     elif mode != "decode":
         raise ValueError(f"the audio family's {mode} mode needs frames, the "
                          f"encoder's input")
@@ -438,14 +472,14 @@ def _forward_audio(params, cfg, *, tokens, frames, mode, cache, lp, proto):
     new = {}
 
     def dec_layer(x, li, ctx):
-        p_l = layer_params(params["layers"], li)
+        p_l = shd.unshard_batch_axes(layer_params(params["layers"], li))
         h, new_kv = attention_fwd(p_l["attn"],
-                                  rms_norm(x, p_l["ln1"], cfg.norm_eps), cfg,
+                                  _norm(x, p_l["ln1"], cfg), cfg,
                                   positions=positions, mode=mode,
                                   cache=_kv(cache, mode, li, index),
                                   lora_ctx=ctx)
         x = x + h
-        xin = rms_norm(x, p_l["lnx"], cfg.norm_eps)
+        xin = _norm(x, p_l["lnx"], cfg)
         if mode == "decode":
             q = torch.einsum("bsd,dhk->bshk", xin, p_l["xattn"]["wq"])
             o = naive_attention(q, cache["cross_k"][li],
@@ -460,7 +494,7 @@ def _forward_audio(params, cfg, *, tokens, frames, mode, cache, lp, proto):
                 new.setdefault("cross_v", []).append(torch.einsum(
                     "bsd,dhk->bshk", memory, p_l["xattn"]["wv"]))
         x = x + h2
-        x = x + mlp_fwd(p_l["mlp"], rms_norm(x, p_l["ln2"], cfg.norm_eps))
+        x = x + mlp_fwd(p_l["mlp"], _norm(x, p_l["ln2"], cfg))
         if new_kv is not None:
             new.setdefault("k", []).append(new_kv["k"])
             new.setdefault("v", []).append(new_kv["v"])

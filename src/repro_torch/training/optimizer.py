@@ -18,6 +18,7 @@ import math
 from typing import Any, Dict
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
 
 from ..distributed.sharding import P
 from ..models.param import tree_leaves, tree_map
@@ -55,16 +56,25 @@ def lr_at(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return _f32(cfg.lr, step) * warm * cos
 
 
+def _zeros_f32(p: torch.Tensor) -> torch.Tensor:
+    return torch.zeros_like(p, dtype=torch.float32,
+                            memory_format=torch.contiguous_format)
+
+
 def init_opt_state(params) -> Dict[str, Any]:
+    """The state of a parameter tree; of DTensors, each leaf in its
+    parameter's placements and ``count`` replicated on their mesh."""
     leaf = tree_leaves(params)[0]
+    count = torch.zeros((), dtype=torch.int32, device=leaf.device)
+    if isinstance(leaf, DTensor):
+        count = distribute_tensor(count, leaf.device_mesh,
+                                  [Replicate()] * leaf.device_mesh.ndim)
     return {
         "master": tree_map(lambda p: p.detach().to(torch.float32, copy=True),
                            params),
-        "mu": tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                             device=p.device), params),
-        "nu": tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                             device=p.device), params),
-        "count": torch.zeros((), dtype=torch.int32, device=leaf.device),
+        "mu": tree_map(_zeros_f32, params),
+        "nu": tree_map(_zeros_f32, params),
+        "count": count,
     }
 
 

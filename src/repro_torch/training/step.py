@@ -6,12 +6,19 @@ trained tree's leaves, so the caller's tensors are never marked as
 requiring grad.  As in the JAX module, one microbatch gives gradients in
 the parameters' dtype, and more are accumulated in f32 as
 ``g.float() / n_micro``.
+
+The same steps run on DTensors inside the sharded step
+(``launch/shardings.py::sharded_step_for``): each gradient is brought to
+its parameter's placements (the sum over the batch axes that the
+placements imply: an all-reduce, or a reduce-scatter for a leaf sharded
+there), and the accumulators take their parameters' placements.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
 from ..configs.base import ModelConfig, ShapeConfig
 from ..models import transformer as tf
@@ -31,13 +38,20 @@ def _unflatten_like(tree, leaves):
     return walk(tree)
 
 
+def _placed_like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A DTensor gradient in its parameter's placements."""
+    if isinstance(p, DTensor) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
 def _value_and_grad(loss_fn, params, batch):
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
     with torch.enable_grad():
         loss = loss_fn(_unflatten_like(params, leaves), batch)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     # a leaf the loss does not reach has a zero gradient, as in JAX
-    grads = [torch.zeros_like(p) if g is None else g
+    grads = [torch.zeros_like(p) if g is None else _placed_like(g, p)
              for p, g in zip(leaves, grads)]
     return loss.detach(), _unflatten_like(params, grads)
 
@@ -48,6 +62,12 @@ def _microbatch_grads(loss_fn, params, batch, n_micro: int):
         return _value_and_grad(loss_fn, params, batch)
 
     def split(x):
+        if isinstance(x, DTensor):
+            # a microbatch is a block of the whole batch's rows: the batch
+            # (token ids) is gathered first, as a sharded dim cannot be
+            # split in two; the model shards each microbatch again
+            x = x.redistribute(x.device_mesh,
+                               [Replicate()] * x.device_mesh.ndim)
         b = x.shape[0]
         return x.reshape((n_micro, b // n_micro) + tuple(x.shape[1:]))
 
@@ -55,8 +75,9 @@ def _microbatch_grads(loss_fn, params, batch, n_micro: int):
     leaf = tree_leaves(params)[0]
     n = torch.full((), n_micro, dtype=torch.float32, device=leaf.device)
     loss_acc = torch.zeros((), dtype=torch.float32, device=leaf.device)
-    grads_acc = tree_map(lambda p: torch.zeros(
-        p.shape, dtype=torch.float32, device=p.device), params)
+    grads_acc = tree_map(lambda p: torch.zeros_like(
+        p, dtype=torch.float32, memory_format=torch.contiguous_format),
+        params)
     for i in range(n_micro):
         loss, grads = _value_and_grad(loss_fn, params,
                                       {k: v[i] for k, v in mb.items()})

@@ -392,9 +392,14 @@ def test_skips_meshes_and_names_follow_jax():
     for mesh, multi in (("16x16", False), ("2x16x16", True)):
         assert dryrun.cell_name("a", "s", mesh) == jdry.cell_name("a", "s",
                                                                   multi)
+    # a mesh of more than one rank: the sharded step, as rank 0 runs it
     one = dryrun.run_cell("qwen3-1.7b", "decode_32k", "1x4")
-    assert one["step"] is None and "no sharded step" in one["step_reason"]
-    assert "roofline" not in one and "peak_bytes" not in one["memory"]
+    assert one["ok"] and one["step"] == "meta" and one["rank"] == 0
+    mem = one["memory"]
+    assert mem["step_argument_bytes"] == mem["argument_bytes"] - 4  # index
+    assert mem["peak_bytes"] > mem["argument_bytes"]
+    assert one["collectives"]["counts"]["all-reduce"] > 0
+    assert one["roofline"]["flops_per_dev"] == one["op_cost"]["flops"] > 0
     full = dryrun.argument_bytes(dryrun.get_config("qwen3-1.7b"),
                                  dryrun.SHAPES["decode_32k"],
                                  dryrun._mesh("1"))

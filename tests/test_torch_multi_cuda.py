@@ -30,7 +30,25 @@ inside the fixture, never at import.
     within the quantization bound, with wire bytes and ms of both;
 (d) mistral-7b's parameters placed by ``params_shardings(defs, mesh,
     "serve")`` as DTensors on a (1, 4) DeviceMesh: each rank's bytes equal
-    what the specs predict from ``count_defs``.
+    what the specs predict from ``count_defs``;
+(e) the sharded step (``launch/shardings.py::sharded_step_for``) under
+    the serve rules on (1, 4): mistral-7b at full width and depth in bf16
+    (weights at 1/sqrt(fan-in)), prefill of 8 x 2048 and ``SH_STEPS`` lazy
+    decode steps (row 1 on each rank's own 2 kv heads), against rank 0's
+    replicated step fed the same tokens: logits within phase 10's bf16
+    bound, tokens equal where the replicated top-2 margin exceeds it;
+    each rank's params 3.621 GB (``dryrun.argument_bytes``);
+(f) the sharded train step under the train rules (FSDP) on (2, 2):
+    mistral-7b at all 32 layers, bf16, batch 4 x 64, which one card cannot
+    hold; each rank's ``max_memory_allocated`` over the step less what it
+    held before its inputs within 5% of the dry run's per-rank peak for
+    the same cell (``launch/dryrun.py`` on meta tensors as rank 0 of a
+    fake group, in the fixture's process); at depth 2 in f32 (AdamW
+    with eps 1, :data:`SH_OPT`) against rank 0's replicated step on one
+    card: the loss within phase 8's 1e-5, the gradients (AdamW's first
+    moment) within :data:`SH_GRAD_TOL` of the largest, and every updated
+    master weight within lr times their difference plus one f32
+    rounding.
 """
 import dataclasses as dc
 import datetime
@@ -47,11 +65,20 @@ import torch
 pytestmark = pytest.mark.gpu
 
 WORLD = 4
-TIMEOUT = 420              # s for the ranks, their build and start included
+TIMEOUT = 900              # s for the ranks, their build and start included
 NCCL_TIMEOUT = datetime.timedelta(seconds=180)  # a hung collective raises
 SEQ = dict(B=128, S=32768, H=64, Kv=8, hd=128)     # qwen3-32b decode_32k
 MOE_TOKENS = (8, 512)
 F32_LOGIT_ATOL = 1e-4      # f32 logits, the families' parity tolerance
+SH_PROMPT, SH_BATCH, SH_STEPS = 2048, 8, 4
+SH_BF16_ATOL = 0.5         # bf16 logits at 32 layers: chip_smoke phase 10
+SH_TRAIN = ("train_4x64", 64, 4, "train")
+SH_PEAK_TOL = 0.05
+SH_LOSS_ATOL = 1e-5        # f32 loss: chip_smoke phase 8 (a)
+# the depth-2 step's AdamW (tests/spmd_common.py's TRAIN_OPT): with eps 1
+# a weight moves by lr times g / (|g| + 1), in proportion to its gradient
+SH_OPT = dict(eps=1.0, lr=1e-3, warmup_steps=1)
+SH_GRAD_TOL = 1e-4         # f32 gradients: tests/test_torch_training.py
 
 
 # --------------------------------------------------------------------------
@@ -338,6 +365,213 @@ def _case_place(rank, dev, out):
     out["place_allocated_bytes"] = held
 
 
+def _host(x):
+    """A (possibly DTensor) result on the host, in f32 (a DTensor gathered:
+    every rank calls this)."""
+    return (x.full_tensor() if hasattr(x, "full_tensor") else x).float(
+    ).cpu()
+
+
+def _sh_run(cfg, params, tokens, dev, mesh=None, feed=None):
+    """Prefill of ``tokens`` then SH_STEPS lazy decode steps fed ``feed``
+    (by default each step's argmax), sharded on ``mesh`` or replicated.
+    Returns the logits of each step, the tokens fed and host ms."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import shardings as tshard
+    from repro_torch.models import api
+    from repro_torch.models import transformer as tf
+    B, S = tokens.shape
+    s_max = S + 2 * SH_STEPS
+    pre = ShapeConfig("prefill", s_max, B, "prefill")
+    dec = ShapeConfig("decode", s_max, B, "decode")
+
+    def run(shape):
+        return tshard.sharded_step_for(cfg, shape, mesh) \
+            if mesh is not None else api.step_fn_for(cfg, shape)
+
+    def place(shape, **trees):
+        return tshard.place_inputs(cfg, shape, mesh, device=dev, **trees) \
+            if mesh is not None else trees
+
+    ins = place(pre, batch={"tokens": tokens},
+                cache=tf.init_cache(cfg, B, s_max, device=dev))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lg, cache = run(pre)(params, ins["batch"], ins["cache"])
+    lg = _host(lg)[:, -1]
+    out = {"prefill_s": time.perf_counter() - t0, "logits": [lg],
+           "fed": [], "host_ms": []}
+    del ins
+    for i in range(SH_STEPS):
+        fed = feed[i] if feed is not None else out["logits"][-1].argmax(-1)
+        batch = place(dec, batch={"tokens": fed[:, None].to(dev)})["batch"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = run(dec)(params, batch, cache)
+        out["logits"].append(_host(lg)[:, -1])
+        out["host_ms"].append(1e3 * (time.perf_counter() - t0))
+        out["fed"].append(fed)
+    return out
+
+
+def _case_sharded_serve(rank, dev, out):
+    import dataclasses as dc
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import flash_decode
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import shardings as tshard
+    from repro_torch.launch.families import fan_in_defs
+    from repro_torch.launch.mesh import device_mesh, make_mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.param import init_params, tree_leaves
+    mesh = device_mesh(make_mesh((1, WORLD), ("data", "model")))
+    cfg = dc.replace(get_config("mistral-7b"), decode_attn="lazy")
+    g = torch.Generator(device=dev)
+    g.manual_seed(50)                      # the same weights on every rank
+    full = init_params(fan_in_defs(tf.model_defs(cfg)), g, dev,
+                       dtype_override=torch.bfloat16)
+    shape = ShapeConfig("prefill", SH_PROMPT + 2 * SH_STEPS, SH_BATCH,
+                        "prefill")
+    params = tshard.place_inputs(cfg, shape, mesh, device=dev,
+                                 params=full)["params"]
+    local = sum(t.to_local().numel() * t.element_size()
+                for t in tree_leaves(params))
+    assert local == dryrun.argument_bytes(cfg, shape, mesh)["params"]
+    out["sh_params_bytes_rank"] = local
+    if rank:
+        del full
+    torch.cuda.empty_cache()
+    gt = torch.Generator(device=dev)
+    gt.manual_seed(51)
+    tokens = torch.randint(0, cfg.vocab_size, (SH_BATCH, SH_PROMPT),
+                           generator=gt, device=dev)
+    rep = _sh_run(cfg, full, tokens, dev) if rank == 0 else None
+    feed = [None] * SH_STEPS
+    if rank == 0:
+        feed = [f.to(dev) for f in rep["fed"]]
+    for i in range(SH_STEPS):              # rank 0's tokens to every rank
+        if rank:
+            feed[i] = torch.empty((SH_BATCH,), dtype=torch.long, device=dev)
+        dist.broadcast(feed[i], src=0)
+    flash_decode.LAUNCHES = 0
+    shd = _sh_run(cfg, params, tokens, dev, mesh, [f.cpu() for f in feed])
+    out["sh_flash_decode_launches"] = flash_decode.LAUNCHES
+    assert flash_decode.LAUNCHES == SH_STEPS * cfg.num_layers * 2
+    out["sh_prefill_s"] = shd["prefill_s"]
+    out["sh_decode_host_ms"] = shd["host_ms"]
+    if rank == 0:
+        out["rep_prefill_s"] = rep["prefill_s"]
+        out["rep_decode_host_ms"] = rep["host_ms"]
+        # the prefill's logits, then each decode step's
+        d = max(float((a - b).abs().max())
+                for a, b in zip(shd["logits"], rep["logits"]))
+        compared = equal = 0
+        for a, b in zip(shd["logits"], rep["logits"]):
+            top = torch.topk(b, 2, dim=-1).values
+            sure = (top[:, 0] - top[:, 1]) > SH_BF16_ATOL
+            compared += int(sure.sum())
+            equal += int((a.argmax(-1) == b.argmax(-1))[sure].sum())
+        out["sh_max_abs_dlogit"] = d
+        out["sh_tokens_compared"], out["sh_tokens_equal"] = compared, equal
+        assert d < SH_BF16_ATOL, d
+        assert equal == compared > 0, (equal, compared)
+
+
+def _case_sharded_train(rank, dev, out):
+    import dataclasses as dc
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import shardings as tshard
+    from repro_torch.launch.families import fan_in_defs
+    from repro_torch.launch.mesh import device_mesh, make_mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.param import init_params, tree_leaves
+    from repro_torch.training.optimizer import (AdamWConfig, init_opt_state,
+                                                lr_at)
+    from repro_torch.training.step import make_train_step
+    mesh = device_mesh(make_mesh((2, 2), ("data", "model")))
+    shape = ShapeConfig(*SH_TRAIN)
+    # all 32 layers, bf16: the per-rank peak against the dry run's
+    cfg = get_config("mistral-7b")
+    gb = torch.Generator(device=dev)
+    gb.manual_seed(60)
+    batch = {k: torch.randint(0, cfg.vocab_size, (shape.global_batch,
+                                                  shape.seq_len),
+                              generator=gb, device=dev, dtype=torch.int32)
+             for k in ("tokens", "targets")}
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(61)
+    full = init_params(fan_in_defs(tf.model_defs(cfg)), g, dev,
+                       dtype_override=torch.bfloat16)
+    ins = tshard.place_inputs(cfg, shape, mesh, device=dev, params=full,
+                              batch=batch)
+    del full
+    ins["opt_state"] = init_opt_state(ins["params"])
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    step = tshard.sharded_step_for(cfg, shape, mesh)
+    t0 = time.perf_counter()
+    _, _, m = step(ins["params"], ins["opt_state"], ins["batch"])
+    loss = float(_host(m["loss"]))
+    torch.cuda.synchronize()
+    out["train32_step_s"] = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    out["train32_loss"] = loss
+    out["train32_argument_bytes"] = base - before
+    out["train32_peak_bytes"] = peak - before
+    out["train32_temp_bytes"] = peak - base
+    del ins, m, step
+    torch.cuda.empty_cache()
+    # depth 2 in f32: the loss, the gradients (AdamW's first moment) and
+    # the updated master weights against one card's replicated step
+    opt = AdamWConfig(**SH_OPT)
+    cfg2 = dc.replace(cfg, num_layers=2)
+    g.manual_seed(62)
+    full = init_params(fan_in_defs(tf.model_defs(cfg2)), g, dev,
+                       dtype_override=torch.float32)
+    ins = tshard.place_inputs(cfg2, shape, mesh, device=dev, params=full,
+                              batch=batch)
+    ins["opt_state"] = init_opt_state(ins["params"])
+    _, o2, m = tshard.sharded_step_for(cfg2, shape, mesh, opt_cfg=opt)(
+        ins["params"], ins["opt_state"], ins["batch"])
+    out["train2_loss_sharded"] = float(_host(m["loss"]))
+    sh = {k: [_host(t) for t in tree_leaves(o2[k])] for k in ("mu", "master")}
+    del ins, m, o2
+    if rank == 0:
+        _, ro, m = make_train_step(cfg2, opt)(full, init_opt_state(full),
+                                              batch)
+        out["train2_loss_replicated"] = float(m["loss"])
+        d = abs(out["train2_loss_sharded"] - out["train2_loss_replicated"])
+        out["train2_max_abs_dloss"] = d
+        rep = {k: [t.float().cpu() for t in tree_leaves(ro[k])]
+               for k in ("mu", "master")}
+        # mu is (1 - b1) times the clipped gradient
+        mu_max = max(float(t.abs().max()) for t in rep["mu"])
+        d_mu = max(float((a - b).abs().max())
+                   for a, b in zip(sh["mu"], rep["mu"]))
+        # each master moves by lr times a function of its gradient whose
+        # slope is at most 1, plus one f32 rounding of the value
+        lr1 = float(lr_at(opt, torch.ones((), dtype=torch.int32)))
+        over = max(float(((a - b).abs() - (
+            lr1 * d_mu / (1 - opt.b1)
+            + torch.finfo(torch.float32).eps * b.abs())).max())
+            for a, b in zip(sh["master"], rep["master"]))
+        moved = max(float((b - p.float().cpu()).abs().max())
+                    for b, p in zip(rep["master"], tree_leaves(full)))
+        out["train2_max_rel_dgrad"] = d_mu / mu_max
+        out["train2_master_over_bound"] = over
+        out["train2_master_moved"] = moved
+        assert d <= SH_LOSS_ATOL, d
+        assert d_mu <= SH_GRAD_TOL * mu_max, (d_mu, mu_max)
+        assert over <= 0, over
+
+
 def rank_main(rank: int, port: int, out_dir: str) -> None:
     import torch.distributed as dist
     torch.cuda.set_device(rank)
@@ -348,7 +582,8 @@ def rank_main(rank: int, port: int, out_dir: str) -> None:
                             timeout=NCCL_TIMEOUT)
     out = {"device": torch.cuda.get_device_name(dev)}
     try:
-        for case in (_case_seq, _case_moe, _case_psum, _case_place):
+        for case in (_case_seq, _case_moe, _case_psum, _case_place,
+                     _case_sharded_serve, _case_sharded_train):
             torch.cuda.empty_cache()
             t0 = time.perf_counter()
             print(f"[rank {rank}] {case.__name__}", file=sys.stderr,
@@ -389,6 +624,9 @@ def group(tmp_path_factory):
              for r in range(WORLD)]
     deadline = time.monotonic() + TIMEOUT
     try:
+        # meanwhile, case (f)'s cell in the dry run (meta tensors, this
+        # process as rank 0 of a fake group of four)
+        predicted = _dryrun_train_peak()
         for p in procs:
             p.wait(timeout=max(deadline - time.monotonic(), 1))
     finally:
@@ -407,7 +645,27 @@ def group(tmp_path_factory):
     print("\nmulti_cuda cards: " + json.dumps(smi))
     for r, o in enumerate(ranks):
         print(f"multi_cuda rank {r}: " + json.dumps(o))
+    print("multi_cuda (f) dry run, rank 0 of (2, 2): " + json.dumps(
+        predicted))
+    for o in ranks:
+        o["train32_predicted"] = predicted
     return ranks
+
+
+def _dryrun_train_peak() -> dict:
+    """The dry run of case (f)'s cell: mistral-7b's full train step on
+    (2, 2), batch 4 x 64 (rank 0's peak, temp and argument bytes)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    cfg, shape = get_config("mistral-7b"), ShapeConfig(*SH_TRAIN)
+    m = dryrun._mesh("2x2")
+    n_micro = dryrun._n_micro(cfg, shape, None, m)
+    with dryrun.fake_group(m) as mesh:
+        pred = dryrun.predict(cfg, shape, n_micro=n_micro, mesh=mesh)
+    return {**pred["memory"], "n_micro": n_micro,
+            "bound_ms": pred["bound_ms"], "flops": pred["op_cost"]["flops"],
+            "collectives": pred["collectives"]}
 
 
 def test_seq_sharded_decode_on_four_cards(group):
@@ -440,6 +698,29 @@ def test_params_placed_by_serve_shardings(group):
     for o in group:
         assert o["place_local_bytes"] * WORLD >= o["place_total_bytes"]
         assert o["place_local_bytes"] < o["place_total_bytes"] / 2
+
+
+def test_sharded_serve_step_on_four_cards(group):
+    r0 = group[0]
+    # tokens are compared where the margin exceeds the bound (at random
+    # weights few do: 3 of 40 in chip_smoke phase 12)
+    assert r0["sh_tokens_equal"] == r0["sh_tokens_compared"] > 0
+    assert r0["sh_max_abs_dlogit"] < SH_BF16_ATOL
+    for o in group:
+        # 3.621 GB a rank, what case (d) places
+        assert abs(o["sh_params_bytes_rank"] - 3.621e9) < 1e6
+        assert o["sh_flash_decode_launches"] > 0
+
+
+def test_sharded_train_step_on_four_cards(group):
+    r0 = group[0]
+    assert r0["train2_max_abs_dloss"] <= SH_LOSS_ATOL
+    assert r0["train2_max_rel_dgrad"] <= SH_GRAD_TOL
+    assert r0["train2_master_over_bound"] <= 0
+    for o in group:
+        want = o["train32_predicted"]["peak_bytes"]
+        got = o["train32_peak_bytes"]
+        assert abs(got - want) <= SH_PEAK_TOL * want, (got, want)
 
 
 if __name__ == "__main__":
