@@ -61,6 +61,11 @@ Phases (any failure ends the script with a non-zero exit code):
    contiguous kernel on the same lengths, two calls held bit for bit, and
    one ``scaled_dot_product_attention`` call on the contiguous cache as the
    attention kernel's yardstick, with the kernel's share of its bound);
+   the KV wire kernels on the exported request's first (128, 65536) bf16
+   block in six modes (quantize to int8 and int4; dequantize each to f32
+   and to bf16), each held bit for bit against its plain version, then
+   timed warm, cold (after a 128 MiB write) and on a clean L2 (after a
+   128 MiB read) beside its bound (``checks.cold_l2``);
 6. compress_apply: ``repro_torch.launch.compress_apply.run`` at
    mistral-7b's q-projection width (4096 -> 4096, rank 16) on 1000
    random bf16 adapters: clustered JD-Full (QR iteration, 8 clusters) and
@@ -987,28 +992,60 @@ def phase_paged_kv(dev, rows):
 
     x = art["lora"]["wire_block"]
     assert tuple(x.shape) == (128, 65536) and x.dtype == torch.bfloat16
-    q8 = checks.check_kv_quantize(x, 8)
-    q4 = checks.check_kv_quantize(x, 4)
-    q, sc = q8["packed"], q8["scales"]
-    checks.check_kv_dequantize(q, sc, 8, torch.float32)
-    quant_ms = checks.cuda_ms(lambda: kv_quant.kv_quantize(x, 8))
-    quant_dev = checks.device_ms(lambda: kv_quant.kv_quantize(x, 8),
-                                 [checks.KV_QUANT_KERNEL])
+
+    def wire_mode(name, fn, kernel, nbytes, flops):
+        """One mode of rows 13 and 14: CUDA-event ms, the kernel's device
+        ms warm (the block again and again, inside the L2) and cold (after
+        a 128 MiB write, and after a 128 MiB read: a clean L2), and its
+        bound.  200 untimed calls first, so that the first mode is not
+        timed on a card still settling from the phase before."""
+        for _ in range(200):
+            fn()
+        m = dict(ms=checks.cuda_ms(fn),
+                 device_ms=checks.device_ms(fn, [kernel]),
+                 device_ms_cold=checks.device_ms(checks.cold_l2(fn, dev),
+                                                 [kernel]),
+                 device_ms_cold_clean=checks.device_ms(
+                     checks.cold_l2(fn, dev, "read"), [kernel]),
+                 bound_ms=checks.bound_ms(nbytes, flops)[0])
+        log(f"[paged_kv] {name}: device ms {m['device_ms']:.5f} warm, "
+            f"{m['device_ms_cold']:.5f} cold ({m['device_ms_cold_clean']:.5f}"
+            f" clean L2); bound {m['bound_ms']:.5f} = "
+            f"{m['bound_ms'] / m['device_ms_cold']:.1%} of cold")
+        return m
+
+    quant, dequant, packs = {}, {}, {}
+    for bits in (8, 4):                 # each mode bit for bit, then timed
+        res = checks.check_kv_quantize(x, bits)
+        packs[bits] = (res["packed"], res["scales"])
+        quant[f"int{bits}"] = wire_mode(
+            f"kv_quantize int{bits} from bf16",
+            lambda bits=bits: kv_quant.kv_quantize(x, bits),
+            checks.KV_QUANT_KERNEL, checks.kv_quant_bytes(x, bits),
+            3 * x.numel())
+    for bits in (8, 4):
+        q, sc = packs[bits]
+        for od, od_name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            checks.check_kv_dequantize(q, sc, bits, od)
+            dequant[f"int{bits}_{od_name}"] = wire_mode(
+                f"kv_dequantize int{bits} to {od_name}",
+                lambda q=q, sc=sc, bits=bits, od=od: kv_quant.kv_dequantize(
+                    q, sc, bits, od),
+                checks.KV_DEQUANT_KERNEL,
+                checks.kv_dequant_bytes(q, sc, bits, od), q.numel())
+    q, sc = packs[8]
     rows["kv_quantize"] = dict(
-        max_abs_err=0.0, tolerance="exact", ms=quant_ms, device_ms=quant_dev,
+        max_abs_err=0.0, tolerance="exact", ms=quant["int8"]["ms"],
+        device_ms=quant["int8"]["device_ms"],
         plain_ms=checks.cuda_ms(lambda: ref.kv_quant_ref(x, 8)),
         library_ms=None, bound=checks.bound_ms(checks.kv_quant_bytes(x, 8),
                                                3 * x.numel()),
-        ms_int4=checks.cuda_ms(lambda: kv_quant.kv_quantize(x, 4)),
-        device_ms_int4=checks.device_ms(lambda: kv_quant.kv_quantize(x, 4),
-                                        [checks.KV_QUANT_KERNEL]),
-        launch_overhead_ms=quant_ms - quant_dev,
+        modes=quant,
+        launch_overhead_ms=quant["int8"]["ms"] - quant["int8"]["device_ms"],
         shape=dict(T=128, C=65536, bits=8, dtype="bf16"))
     rows["kv_dequantize"] = dict(
-        max_abs_err=0.0, tolerance="exact",
-        ms=checks.cuda_ms(lambda: kv_quant.kv_dequantize(q, sc, 8)),
-        device_ms=checks.device_ms(lambda: kv_quant.kv_dequantize(q, sc, 8),
-                                   [checks.KV_DEQUANT_KERNEL]),
+        max_abs_err=0.0, tolerance="exact", ms=dequant["int8_f32"]["ms"],
+        device_ms=dequant["int8_f32"]["device_ms"],
         plain_ms=checks.cuda_ms(lambda: ref.kv_dequant_ref(q, sc)),
         library_ms=checks.cuda_ms(checks.library_dequant(q, sc)),
         library_device_ms=checks.device_ms(checks.library_dequant(q, sc),
@@ -1016,9 +1053,7 @@ def phase_paged_kv(dev, rows):
         bound=checks.bound_ms(checks.kv_dequant_bytes(q, sc, 8,
                                                       torch.float32),
                               q.numel()),
-        ms_int4=checks.cuda_ms(lambda: kv_quant.kv_dequantize(
-            q4["packed"], q4["scales"], 4)),
-        shape=dict(T=128, C=65536, bits=8, out="f32"))
+        modes=dequant, shape=dict(T=128, C=65536, bits=8, out="f32"))
     log(f"[paged_kv] kv_quantize launch overhead (CUDA-event ms less device "
         f"ms, one call on a (128, 65536) bf16 block): "
         f"{rows['kv_quantize']['launch_overhead_ms']:.4f} ms")
@@ -2446,7 +2481,7 @@ def main() -> int:
                     "contiguous_library_max_abs_diff", "serve",
                     "f32_bank", "bf16_bank", "layer_group", "B_bank",
                     "V_bank",
-                    "ms_int4", "device_ms_int4", "launch_overhead_ms",
+                    "modes", "launch_overhead_ms",
                     "shape", "pixtral_12b"):
             if key in r:
                 entry[key] = r[key]

@@ -590,6 +590,24 @@ def kv_dequant_bytes(packed: torch.Tensor, scales: torch.Tensor, bits: int,
     return _nbytes(packed, scales) + T * C * es
 
 
+# bytes a cold-L2 timing writes (or reads) before each call: past the
+# H100's 50 MB L2
+FLUSH_BYTES = 128 << 20
+
+
+def cold_l2(fn: Callable[[], object], device, by: str = "write"
+            ) -> Callable[[], object]:
+    """``fn`` after emptying the L2 of its inputs: each call first writes
+    (``by="write"``: zero_) or reads (``"read"``: a sum) a
+    :data:`FLUSH_BYTES` scratch buffer.  Written, the scratch leaves dirty
+    lines that ``fn``'s accesses must write back first; read, it leaves
+    clean ones.  ``device_ms`` over the named kernels leaves the scratch
+    kernel out."""
+    scratch = torch.zeros(FLUSH_BYTES // 4, device=device)
+    empty = {"write": scratch.zero_, "read": scratch.sum}[by]
+    return lambda: (empty(), fn())
+
+
 def library_dequant(q: torch.Tensor, scales: torch.Tensor
                     ) -> Callable[[], torch.Tensor]:
     """One PyTorch call computing int8 dequantization to f32 (KV blocks or

@@ -689,10 +689,19 @@ def _paged_run(pc):
                               pc["page_table"], pc["kv_len"])
 
 
+# (T, C): each path of csrc/kv_quant.cu.  C a multiple of every lane
+# width (8 quantize, 4 dequantize to f32, 8 to bf16) takes the vector
+# paths; 4100 only dequantize's f32 one; 131, 33 and 1 the scalar paths.
+# T up to KVQ_RESIDENT = 128 tokens is held in registers; 130 and 1024 read
+# the block again chunk by chunk
+KV_SHAPES = [(128, 65536), (128, 256), (64, 131), (32, 384), (6, 33), (2, 1),
+             (2, 65536), (2, 33), (128, 4100), (130, 4096), (130, 131),
+             (1024, 4096), (1024, 131), (1024, 1)]
+
+
 @pytest.mark.parametrize("bits", [8, 4])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("T,C", [(128, 65536), (128, 256), (64, 131),
-                                 (32, 384), (6, 33), (2, 1)])
+@pytest.mark.parametrize("T,C", KV_SHAPES)
 def test_kv_quant_equals_plain(cuda, T, C, dtype, bits):
     """Packed bytes, scales and both output types bit for bit; odd C; a
     zero channel, exact halves; and the round trip within ERROR_BOUND."""
@@ -713,6 +722,82 @@ def test_kv_quant_equals_plain(cuda, T, C, dtype, bits):
     deq = kq.kv_dequantize(res["packed"], res["scales"], bits)
     checks.check_kv_error(x, deq, bits)
     assert out.shape == (T, C)
+    torch.cuda.synchronize()
+
+
+def _offset_by_one(shape, dtype, device):
+    """A contiguous tensor whose storage offset of one element breaks
+    16-byte alignment."""
+    n = shape[0] * shape[1]
+    t = torch.empty(n + 1, dtype=dtype, device=device)[1:].view(shape)
+    assert t.is_contiguous() and t.data_ptr() % 16
+    return t
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_kv_quant_misaligned_equals_plain(cuda, dtype, bits):
+    """x, the packed values and the scales one element off 16-byte
+    alignment: the kernels take their scalar paths, bit for bit."""
+    from repro_torch.kernels import kv_quant as kq
+    T, C = 130, 4096
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    x = _offset_by_one((T, C), dtype, cuda)
+    x.copy_(torch.randn((T, C), generator=gen, device=cuda))
+    res = checks.check_kv_quantize(x, bits)
+    packed = _offset_by_one(tuple(res["packed"].shape), res["packed"].dtype,
+                            cuda)
+    packed.copy_(res["packed"])
+    scales = _offset_by_one((1, C), torch.float32, cuda)
+    scales.copy_(res["scales"])
+    before = kq.LAUNCHES_DEQUANT
+    for od in (torch.float32, torch.bfloat16):
+        checks.check_kv_dequantize(packed, scales, bits, od)
+    assert kq.LAUNCHES_DEQUANT == before + 2
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_kv_quant_near_ties_equals_plain(cuda, bits):
+    """Values on and one f32 ulp either side of each channel's half
+    levels, (k + 1/2) * scale: where the kernel's screened level (a
+    multiply by the reciprocal) must fall back to the division."""
+    from repro_torch.kernels import kv_quant as kq
+    T, C, qmax = 128, 4096, kq.QMAX[bits]
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    absmax = torch.rand((1, C), generator=gen, device=cuda) * 10 + 1e-3
+    scale = absmax / torch.full_like(absmax, float(qmax))
+    k = torch.randint(-qmax, qmax, (T, C), generator=gen, device=cuda)
+    x = (k.float() + 0.5) * scale
+    step = torch.randint(-1, 2, (T, C), generator=gen, device=cuda)
+    x = torch.where(step > 0, torch.nextafter(x, x + 1),
+                    torch.where(step < 0, torch.nextafter(x, x - 1), x))
+    x[0] = absmax[0]                    # pins each channel's scale
+    for dtype in (torch.float32, torch.bfloat16):
+        res = checks.check_kv_quantize(x.to(dtype), bits)
+        checks.check_kv_dequantize(res["packed"], res["scales"], bits,
+                                   torch.float32)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_kv_quant_wide_scales_equal_plain(cuda, dtype, bits):
+    """Channels whose absmax spans 2^-40..2^40, and a few at 1e-30 and
+    1e35 (scales outside the division-free quotient's range, where the
+    kernel divides), every value within its channel's absmax: bit for
+    bit, 128 tokens (held) and 130 (read again)."""
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    C = 4096
+    a = torch.exp2(torch.rand((1, C), generator=gen, device=cuda) * 80 - 40)
+    a[0, :4] = torch.tensor([1e-30, 3e-31, 1e35, 2e34], device=cuda)
+    for T in (128, 130):
+        u = torch.rand((T, C), generator=gen, device=cuda) * 2 - 1
+        x = (u * a).to(dtype)
+        x[0] = a[0].to(dtype)
+        bound = x[0].float().abs()
+        x = torch.where(x.float().abs() > bound, x[0].expand_as(x), x)
+        checks.check_kv_quantize(x, bits)
     torch.cuda.synchronize()
 
 

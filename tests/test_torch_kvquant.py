@@ -22,7 +22,10 @@ from repro_torch.serving.engine import ServingHardware
 from repro_torch.serving.resources import (PAGE_TOKENS, KVCompressionConfig,
                                            kv_bytes_per_token)
 
-SWEEP = [(128, 256), (64, 128), (32, 384)]     # tests/test_kvcomp.py
+# tests/test_kvcomp.py's shapes, then the edges the Hopper kernels take
+# apart (tests/test_torch_cuda.py::KV_SHAPES): T above the 128 tokens the
+# quantize kernel holds, C no multiple of a lane's width, two tokens
+SWEEP = [(128, 256), (64, 128), (32, 384), (130, 131), (1024, 64), (2, 33)]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -48,7 +51,7 @@ def _block(seed, T, C, dtype=np.float32):
         np.float32)
     # exact halves after division hit round-half-to-even, and a zero
     # channel takes scale 1
-    x[:4, 0] = [0.5, -1.5, 2.5, 127.0]
+    x[:4, 0] = [0.5, -1.5, 2.5, 127.0][:T]
     x[:, -1] = 0.0
     if dtype != np.float32:
         x = np.asarray(jnp.asarray(x, jnp.bfloat16))
@@ -260,6 +263,25 @@ def test_int8_error_bound_matches_jax(axis):
     err = (adapter_quant.adapter_dequantize(q, s) - tw).abs()
     assert bool((err <= bound * (1 + 1e-5)).all())
     assert math.isclose(adapter_quant.ERROR_BOUND[8], 1 / 254)
+
+
+def test_wire_block_bytes():
+    """The bounds' byte counts at the wire block (128, 65536) of bf16: x
+    read once and the values and scales written, or the reverse."""
+    x = torch.empty((128, 65536), dtype=torch.bfloat16)
+    scales = torch.empty((1, 65536))
+    packed = {8: torch.empty((128, 65536), dtype=torch.int8),
+              4: torch.empty((64, 65536), dtype=torch.uint8)}
+    assert checks.kv_quant_bytes(x, 8) == 25_427_968
+    assert checks.kv_quant_bytes(x, 4) == 21_233_664
+    assert checks.kv_dequant_bytes(packed[8], scales, 8,
+                                   torch.float32) == 42_205_184
+    assert checks.kv_dequant_bytes(packed[4], scales, 4,
+                                   torch.float32) == 38_010_880
+    assert checks.kv_dequant_bytes(packed[8], scales, 8,
+                                   torch.bfloat16) == 25_427_968
+    assert checks.kv_dequant_bytes(packed[4], scales, 4,
+                                   torch.bfloat16) == 21_233_664
 
 
 def test_wire_checks_run_on_cpu_tensors():
