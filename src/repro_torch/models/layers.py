@@ -35,6 +35,7 @@ from ..distributed import collectives
 from ..distributed import sharding as shd
 from ..distributed.sharding import constrain, current_mesh
 from ..kernels.flash_decode import flash_decode
+from ..spans import span
 from . import lora as lora_mod
 from .param import ParamDef
 
@@ -431,16 +432,17 @@ def attention_fwd(p: Dict, x: torch.Tensor, cfg, *,
         raise ValueError(mode)
     use_chunks = (cfg.attn_chunk_q > 0 and mode != "decode"
                   and S > cfg.attn_chunk_q)
-    if use_chunks:
-        out = chunked_attention(q, keys, vals, causal=causal,
-                                chunk_q=cfg.attn_chunk_q,
-                                chunk_kv=cfg.attn_chunk_kv,
-                                q_offset=q_offset, kv_len=kv_len,
-                                sliding_window=cfg.sliding_window)
-    else:
-        out = naive_attention(q, keys, vals, causal=causal,
-                              q_offset=q_offset, kv_len=kv_len,
-                              sliding_window=cfg.sliding_window)
+    with span("attention_core"):
+        if use_chunks:
+            out = chunked_attention(q, keys, vals, causal=causal,
+                                    chunk_q=cfg.attn_chunk_q,
+                                    chunk_kv=cfg.attn_chunk_kv,
+                                    q_offset=q_offset, kv_len=kv_len,
+                                    sliding_window=cfg.sliding_window)
+        else:
+            out = naive_attention(q, keys, vals, causal=causal,
+                                  q_offset=q_offset, kv_len=kv_len,
+                                  sliding_window=cfg.sliding_window)
     return _out_proj(p, out, lora_ctx), new_cache
 
 
@@ -485,11 +487,12 @@ def mlp_defs(d_model: int, d_ff: int) -> Dict:
 
 
 def mlp_fwd(p: Dict, x: torch.Tensor) -> torch.Tensor:
-    g = torch.einsum("bsd,df->bsf", x, p["w_gate"])
-    u = torch.einsum("bsd,df->bsf", x, p["w_up"])
-    h = torch.nn.functional.silu(g.float()).to(x.dtype) * u
-    h = constrain(h, "batch", "seq", "d_ff")
-    return shd.whole_grad(torch.einsum("bsf,fd->bsd", h, p["w_down"]))
+    with span("mlp"):
+        g = torch.einsum("bsd,df->bsf", x, p["w_gate"])
+        u = torch.einsum("bsd,df->bsf", x, p["w_up"])
+        h = torch.nn.functional.silu(g.float()).to(x.dtype) * u
+        h = constrain(h, "batch", "seq", "d_ff")
+        return shd.whole_grad(torch.einsum("bsf,fd->bsd", h, p["w_down"]))
 
 
 # ---------------------------------------------------------------------------

@@ -18,6 +18,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from ..spans import span
 from .param import ParamDef
 
 
@@ -68,31 +69,32 @@ def apply(ctx: Optional[LoRAContext], target: str, x: torch.Tensor,
     ``single`` mode through it."""
     if ctx is None or ctx.params is None or target not in ctx.params:
         return y
-    p = ctx.params[target]
-    dt = x.dtype
-    if ctx.mode == "single":
-        t = torch.einsum("bsd,rd->bsr", x, p["a"].to(dt))
-        delta = torch.einsum("bsr,or->bso", t, p["b"].to(dt))
-    elif ctx.mode == "batched":
-        A = p["A"][ctx.ids].to(dt)               # (B, r, d_in)
-        Bm = p["B"][ctx.ids].to(dt)              # (B, d_out, r)
-        t = torch.einsum("bsd,brd->bsr", x, A)
-        delta = torch.einsum("bsr,bor->bso", t, Bm)
-    elif ctx.mode == "jd":
-        cid = p["cluster_of"][ctx.ids].long()    # (B,)
-        V = p["V"][cid].to(dt)                   # (B, d_in, r)
-        U = p["U"][cid].to(dt)                   # (B, d_out, r)
-        sig = p["sigma"][ctx.ids].to(dt)         # (B, r, r) or (B, r)
-        t = torch.einsum("bsd,bdr->bsr", x, V)
-        if sig.ndim == 2:                        # JD-Diag
-            t = t * sig[:, None, :]
-        else:                                    # JD-Full
-            t = torch.einsum("bsr,brq->bsq", t, sig)
-        delta = torch.einsum("bsr,bor->bso", t, U)
-    else:
-        raise ValueError(ctx.mode)
-    delta = (ctx.scaling * delta.float()).to(y.dtype)
-    return y + delta.reshape(y.shape)
+    with span("adapter"):
+        p = ctx.params[target]
+        dt = x.dtype
+        if ctx.mode == "single":
+            t = torch.einsum("bsd,rd->bsr", x, p["a"].to(dt))
+            delta = torch.einsum("bsr,or->bso", t, p["b"].to(dt))
+        elif ctx.mode == "batched":
+            A = p["A"][ctx.ids].to(dt)               # (B, r, d_in)
+            Bm = p["B"][ctx.ids].to(dt)              # (B, d_out, r)
+            t = torch.einsum("bsd,brd->bsr", x, A)
+            delta = torch.einsum("bsr,bor->bso", t, Bm)
+        elif ctx.mode == "jd":
+            cid = p["cluster_of"][ctx.ids].long()    # (B,)
+            V = p["V"][cid].to(dt)                   # (B, d_in, r)
+            U = p["U"][cid].to(dt)                   # (B, d_out, r)
+            sig = p["sigma"][ctx.ids].to(dt)         # (B, r, r) or (B, r)
+            t = torch.einsum("bsd,bdr->bsr", x, V)
+            if sig.ndim == 2:                        # JD-Diag
+                t = t * sig[:, None, :]
+            else:                                    # JD-Full
+                t = torch.einsum("bsr,brq->bsq", t, sig)
+            delta = torch.einsum("bsr,bor->bso", t, U)
+        else:
+            raise ValueError(ctx.mode)
+        delta = (ctx.scaling * delta.float()).to(y.dtype)
+        return y + delta.reshape(y.shape)
 
 
 def layer_slice(ctx: Optional[LoRAContext], layer_params

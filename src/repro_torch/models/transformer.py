@@ -41,6 +41,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..distributed import sharding as shd
 from ..distributed.sharding import constrain
+from ..spans import span
 from . import lora as lora_mod
 from .layers import (attention_defs, attention_fwd, cross_attention_fwd,
                      _seq_whole, cross_entropy, embed_tokens, embedding_defs,
@@ -206,9 +207,11 @@ def _norm(x, scale, cfg):
 
 def _dense_block(p, x, cfg, *, positions, mode, kv, lora_ctx, causal=True):
     p = shd.unshard_batch_axes(p)
-    h, new_kv = attention_fwd(p["attn"], _norm(x, p["ln1"], cfg),
-                              cfg, positions=positions, mode=mode, cache=kv,
-                              lora_ctx=lora_ctx, causal=causal)
+    xin = _norm(x, p["ln1"], cfg)
+    with span("attention"):
+        h, new_kv = attention_fwd(p["attn"], xin, cfg, positions=positions,
+                                  mode=mode, cache=kv, lora_ctx=lora_ctx,
+                                  causal=causal)
     x = x + h
     x = x + mlp_fwd(p["mlp"], _norm(x, p["ln2"], cfg))
     return x, new_kv
@@ -216,9 +219,10 @@ def _dense_block(p, x, cfg, *, positions, mode, kv, lora_ctx, causal=True):
 
 def _moe_block(p, x, cfg, *, positions, mode, kv, lora_ctx):
     p = shd.unshard_batch_axes(p)
-    h, new_kv = attention_fwd(p["attn"], _norm(x, p["ln1"], cfg),
-                              cfg, positions=positions, mode=mode, cache=kv,
-                              lora_ctx=lora_ctx)
+    xin = _norm(x, p["ln1"], cfg)
+    with span("attention"):
+        h, new_kv = attention_fwd(p["attn"], xin, cfg, positions=positions,
+                                  mode=mode, cache=kv, lora_ctx=lora_ctx)
     x = x + h
     y, aux = moe_fwd(p["moe"], _norm(x, p["ln2"], cfg), cfg)
     return x + y, new_kv, aux

@@ -44,6 +44,7 @@ from ..models import layers
 from ..models import transformer as tf
 from ..models.lora import LoRAContext
 from ..models.param import tree_leaves, tree_map
+from ..spans import count, span
 from .request import Request
 
 DECODE_PATHS = ("unfused", "fused", "fused_q8")
@@ -236,18 +237,25 @@ class RealModelExecutor:
 
     @torch.no_grad()
     def prefill_request(self, req: Request, prompt: np.ndarray) -> None:
-        slot = self.slot_req.index(None)
-        c1 = tf.init_cache(self.cfg, 1, self.s_max, device=self.device)
-        tokens = torch.as_tensor(np.asarray(prompt)[None], dtype=torch.long,
-                                 device=self.device)
-        ids = torch.tensor([req.adapter_id], dtype=torch.int32,
-                           device=self.device)
-        logits, c1 = self._prefill(tokens, c1, ids)
-        self._splice(c1, slot, req.prompt_len)
-        self.slot_req[slot] = req.rid
-        self.slot_adapter[slot] = req.adapter_id
-        self.slot_tokens[slot] = int(torch.argmax(logits[0, -1]))
-        self.slot_len[slot] = req.prompt_len
+        with span("prefill_request", rid=req.rid):
+            slot = self.slot_req.index(None)
+            with span("init_cache"):
+                c1 = tf.init_cache(self.cfg, 1, self.s_max,
+                                   device=self.device)
+            tokens = torch.as_tensor(np.asarray(prompt)[None],
+                                     dtype=torch.long, device=self.device)
+            count("prompt_tokens", tokens.shape[1])
+            ids = torch.tensor([req.adapter_id], dtype=torch.int32,
+                               device=self.device)
+            with span("model"):
+                logits, c1 = self._prefill(tokens, c1, ids)
+            with span("splice"):
+                self._splice(c1, slot, req.prompt_len)
+            self.slot_req[slot] = req.rid
+            self.slot_adapter[slot] = req.adapter_id
+            with span("answer_sync"):
+                self.slot_tokens[slot] = int(torch.argmax(logits[0, -1]))
+            self.slot_len[slot] = req.prompt_len
 
     @torch.no_grad()
     def decode_logits(self) -> torch.Tensor:
