@@ -258,13 +258,19 @@ def log(msg: str) -> None:
 def phase_build():
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    path = _build.build(force=True)
-    log(f"[build] {path.name} in {time.perf_counter() - t0:.1f} s")
+    paths = _build.build(force=True)
+    log(f"[build] {sorted(p.name for p in paths.values())} at once in "
+        f"{time.perf_counter() - t0:.1f} s")
     for line in _build.BUILD_LOG.splitlines():
         if line.startswith("==") or any(w in line for w in (
                 "registers", "spill", "smem", "Compiling entry")):
             log(f"[ptxas] {line.strip()}")
-    _build.lib()
+    # what a jd prefill's first run builds: its one library
+    t0 = time.perf_counter()
+    _build.build(force=True, names=["jd_delta"])
+    log(f"[build] jd_delta alone in {time.perf_counter() - t0:.1f} s")
+    for name in _build.SIGNATURES:
+        _build.lib(name)
 
 
 def phase_kernels(dev):
@@ -550,6 +556,163 @@ def layer_readings(dev, gen) -> dict:
     return out
 
 
+# the score-backlog cell's prefill: one sequence of the median and the
+# longest prompt, Mistral-7B's q/k/v and o, 1000 adapters in 8 clusters
+JD_DELTA_TOKENS, JD_DELTA_ADAPTERS = (1020, 4096), 1000
+JD_DELTA_GROUPS = {"qkv": [H * HD, KV * HD, KV * HD], "o": [H * HD]}
+
+
+def _host_ms(fn, iters=50) -> float:
+    """The host's ms a call of ``fn`` (enqueue only: no sync inside)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host = (time.perf_counter() - t0) / iters * 1e3
+    torch.cuda.synchronize()
+    return host
+
+
+def jd_delta_rows(dev) -> dict:
+    """Row 15, jd_delta_ at the cell's shapes: checked against lora.apply's
+    einsums, then the kernels' ms (CUDA events) and device ms, the bytes
+    bound, the host's ms a call, the launches a call; the same for the
+    plain path (all its kernels)."""
+    from repro_torch.kernels import checks, jd_delta
+    gen = torch.Generator(device=dev).manual_seed(30)
+    out = {}
+    for T in JD_DELTA_TOKENS:
+        for name, outs in JD_DELTA_GROUPS.items():
+            case = checks.jd_delta_case(1, T, H * HD, outs, 8,
+                                        JD_DELTA_ADAPTERS, R, gen, dev)
+            agree = checks.check_jd_delta(case)
+            ys = [y.clone() for y in case["ys"]]
+
+            def kernel():
+                jd_delta.jd_delta_(case["x"], ys, case["banks"],
+                                   case["ids"])
+
+            def plain():
+                checks.jd_delta_plain(case)
+            row = _timed(checks, kernel, [checks.JD_DELTA_KERNEL],
+                         checks.jd_delta_bytes(case), 0)
+            seen = checks.kernel_launches(kernel)
+            plain_seen = checks.kernel_launches(plain)
+            row.update(
+                max_abs_err=agree["max_abs_err"],
+                equal_share=agree["equal_share"],
+                tolerance=agree["tolerance"], host_ms=_host_ms(kernel),
+                launches=sum(seen.values()) / 10, kernels=sorted(seen),
+                plain_ms=checks.cuda_ms(plain),
+                plain_device_ms=checks.device_ms(plain, [""]),
+                plain_host_ms=_host_ms(plain),
+                plain_launches=sum(plain_seen.values()) / 10,
+                bytes=checks.jd_delta_bytes(case),
+                **{f"{k}_device_ms": checks.device_ms(
+                    kernel, [f"jd_delta_{k}"]) for k in ("shrink",
+                                                         "expand")})
+            out[f"{name}_T{T}"] = row
+            log(f"[jd_delta] {name} T={T} " + json.dumps(row))
+    return out
+
+
+def phase_jd_prefill(dev) -> dict:
+    """One ``RealModelExecutor.prefill_request`` as the score-backlog cell
+    runs it: Mistral-7B at full width and depth, 1000 jd adapters in 8
+    clusters on q, k, v and o, a 1,020-token prompt.  Every delta on the
+    kernels (jd_delta's launches counted from 0 just before: 4 a layer;
+    the recorder's ``adapter_kernel`` 128 targets, no ``adapter_plain``),
+    and its logits as close to an f32 reference (the same weights and
+    banks upcast, so every delta takes the einsums) as the plain einsums'
+    (takes() patched to refuse): within 1.25x their relative L2 distance.
+    Two layers hold the kernels to the einsums within 2**-6 (the GPU
+    tests); over 32 layers of random weights the rare other rounding grows
+    as any bf16 rounding does, so the two bf16 runs are held to the f32
+    run, not to each other."""
+    import numpy as np
+    from repro_torch import spans
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import checks, jd_delta
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.param import init_params, tree_map
+    from repro_torch.serving.real_executor import RealModelExecutor
+    from repro_torch.serving.request import Request
+    cfg = get_config("mistral-7b")
+    L, T, n, k = cfg.num_layers, JD_DELTA_TOKENS[0], JD_DELTA_ADAPTERS, 8
+    gen = torch.Generator(device=dev).manual_seed(31)
+    params = init_params(tf.model_defs(cfg), gen, dev)
+    widths = {"q": (H * HD, H * HD), "k": (H * HD, KV * HD),
+              "v": (H * HD, KV * HD), "o": (H * HD, H * HD)}
+    bundles = {"layers": {t: {
+        "U": checks._randn((L, k, do, R), gen, dev, torch.bfloat16,
+                           R ** -0.5),
+        "V": checks._randn((L, k, di, R), gen, dev, torch.bfloat16,
+                           di ** -0.5),
+        "sigma": checks._randn((L, n, R, R), gen, dev, torch.bfloat16,
+                               R ** -0.5),
+        "cluster_of": (torch.arange(n, dtype=torch.int32, device=dev)
+                       % k).expand(L, n).contiguous()}
+        for t, (di, do) in widths.items()}}
+    prompt = np.random.default_rng(31).integers(0, cfg.vocab_size, T)
+    logits = {}
+
+    def prefill(weights=params, banks=bundles):
+        ex = RealModelExecutor(cfg, weights, banks, "jd", max_batch=1,
+                               s_max=T + 4, decode_path="unfused",
+                               device=dev)
+        ex._prefill = _keep(ex._prefill, logits)
+        ex.prefill_request(Request(rid=0, adapter_id=777, prompt_len=T,
+                                   max_new_tokens=1), prompt)
+        torch.cuda.synchronize(dev)
+        return logits.pop("out")[0, -1].float()
+    prefill()                                   # warm up
+    jd_delta.LAUNCHES = 0
+    spans.start()
+    t0 = time.perf_counter()
+    got = prefill()
+    wall = time.perf_counter() - t0
+    counters = spans.take()["counters"]
+    launches = jd_delta.LAUNCHES
+    assert launches == 4 * L, f"jd_delta launched {launches}, want {4 * L}"
+    assert counters.get("adapter_kernel") == 4 * L and \
+        "adapter_plain" not in counters, counters
+    takes = jd_delta.takes
+    jd_delta.takes = lambda *a: False
+    try:
+        prefill()
+        t0 = time.perf_counter()
+        want = prefill()
+        plain_wall = time.perf_counter() - t0
+    finally:
+        jd_delta.takes = takes
+    def f32(t):
+        return t.float() if t.is_floating_point() else t
+    ref = prefill(tree_map(f32, params), tree_map(f32, bundles))
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+    out = dict(tokens=T, adapters=n, clusters=k, layers=L,
+               jd_delta_launches=launches, counters=counters,
+               kernels_vs_plain=rel(got, want), kernels_vs_f32=rel(got, ref),
+               plain_vs_f32=rel(want, ref), prefill_s=wall,
+               plain_prefill_s=plain_wall)
+    log("[jd_prefill] " + json.dumps(out))
+    assert out["kernels_vs_f32"] <= 1.25 * out["plain_vs_f32"], out
+    del params, bundles
+    torch.cuda.empty_cache()
+    return out
+
+
+def _keep(fn, store):
+    """``fn``, keeping its first output (the logits) in ``store["out"]``."""
+    def kept(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        store["out"] = out[0]
+        return out
+    return kept
+
+
 def grouped_kernel_rows(dev, gen):
     """adapter_dequantize and the grouped kernels: checks at the sweep
     shapes and at full width, and the timed rows at the main paths'
@@ -795,17 +958,19 @@ def phase_parity(dev):
             f"max |dlogit| {err:.2e} (tol 2e-5, f32)")
 
 
-def _serve_launches(adapter_quant, flash_decode, fused_decode):
+def _serve_launches(adapter_quant, flash_decode, fused_decode, jd_delta):
     return {"flash_decode": flash_decode.LAUNCHES,
             "fused_decode_lora": fused_decode.LAUNCHES_LORA,
             "fused_decode_jd": fused_decode.LAUNCHES_JD,
             "adapter_quantize": adapter_quant.LAUNCHES,
-            "adapter_dequantize": adapter_quant.LAUNCHES_DEQUANT}
+            "adapter_dequantize": adapter_quant.LAUNCHES_DEQUANT,
+            "jd_delta": jd_delta.LAUNCHES}
 
 
 def phase_serve(dev):
     from repro_torch.configs import get_config
-    from repro_torch.kernels import adapter_quant, flash_decode, fused_decode
+    from repro_torch.kernels import (adapter_quant, flash_decode,
+                                     fused_decode, jd_delta)
     from repro_torch.launch.serve import run_real
     from repro_torch.serving.real_executor import RealModelExecutor
     cfg = get_config("mistral-7b")
@@ -815,33 +980,57 @@ def phase_serve(dev):
     flash_decode.LAUNCHES = 0
     fused_decode.LAUNCHES_LORA = fused_decode.LAUNCHES_JD = 0
     adapter_quant.LAUNCHES = adapter_quant.LAUNCHES_DEQUANT = 0
-    # count the decode steps, for the port's kernel launches per step
-    steps = [0]
+    jd_delta.LAUNCHES = 0
+    kernels = (adapter_quant, flash_decode, fused_decode, jd_delta)
+    # count the decode steps and prefills, for the port's kernel launches
+    # per step, and jd_delta's launches inside each
+    steps, prefills = [0], [0]
+    jd = {"decode": 0, "prefill": 0}
     decode_logits = RealModelExecutor.decode_logits
+    prefill_request = RealModelExecutor.prefill_request
 
     def counted(self):
         steps[0] += 1
-        return decode_logits(self)
+        n = jd_delta.LAUNCHES
+        out = decode_logits(self)
+        jd["decode"] += jd_delta.LAUNCHES - n
+        return out
+
+    def counted_prefill(self, req, prompt):
+        prefills[0] += 1
+        n = jd_delta.LAUNCHES
+        prefill_request(self, req, prompt)
+        jd["prefill"] += jd_delta.LAUNCHES - n
     results = []
     for mode, path, targets in runs:
         torch.cuda.reset_peak_memory_stats(dev)
-        before = _serve_launches(adapter_quant, flash_decode, fused_decode)
-        steps[0] = 0
+        before = _serve_launches(*kernels)
+        steps[0] = prefills[0] = jd["decode"] = jd["prefill"] = 0
         t0 = time.perf_counter()
         RealModelExecutor.decode_logits = counted
+        RealModelExecutor.prefill_request = counted_prefill
         try:
             stats = run_real(cfg, N_ADAPTERS, N_REQUESTS, mode,
                              max_batch=MAX_BATCH, seed=0, decode_path=path,
                              device=dev, targets=targets)
         finally:
             RealModelExecutor.decode_logits = decode_logits
+            RealModelExecutor.prefill_request = prefill_request
         torch.cuda.synchronize(dev)
         wall = time.perf_counter() - t0
-        after = _serve_launches(adapter_quant, flash_decode, fused_decode)
+        after = _serve_launches(*kernels)
         per_step = {k: (after[k] - before[k]) / steps[0] for k in after
-                    if after[k] > before[k] and k != "adapter_quantize"}
+                    if after[k] > before[k]
+                    and k not in ("adapter_quantize", "jd_delta")}
         assert stats["n_requests"] == N_REQUESTS, stats
         assert stats["n_tokens"] == N_REQUESTS * 8, stats
+        # jd: q/k/v's and o's delta in prefill, two launches each; q/k/v's
+        # in a fused decode step (o's rides in the attention kernel)
+        L = cfg.num_layers
+        want = ((4 * L * prefills[0], 2 * L * steps[0]) if mode == "jd"
+                else (0, 0))
+        assert (jd["prefill"], jd["decode"]) == want, (mode, path, jd, want)
+        assert after["jd_delta"] - before["jd_delta"] == sum(want)
         row = dict(mode=mode, decode_path=path,
                    targets=list(targets or ("q", "k", "v", "o")),
                    layers=cfg.num_layers, d_model=cfg.d_model,
@@ -853,11 +1042,14 @@ def phase_serve(dev):
                    compute_time_s=stats["compute_time_s"],
                    run_wall_s=wall, decode_steps=steps[0],
                    kernel_launches_per_step=per_step,
+                   jd_delta_launches_per_layer={
+                       "prefill": jd["prefill"] / (L * prefills[0]),
+                       "decode_step": jd["decode"] / (L * steps[0])},
                    max_memory_allocated_gb=torch.cuda.max_memory_allocated(
                        dev) / 1e9)
         results.append(row)
         log("[serve] " + json.dumps(row))
-    launches = _serve_launches(adapter_quant, flash_decode, fused_decode)
+    launches = _serve_launches(*kernels)
     log("[serve] launches on the main path: " + json.dumps(launches)
         + ' (fused: one attention launch per layer per step, the o-projection'
         ' delta in it);'
@@ -2434,6 +2626,8 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)}")
     phase_build()
     rows = phase_kernels(dev)
+    jd_rows = jd_delta_rows(dev)
+    jd_prefill = phase_jd_prefill(dev)
     phase_parity(dev)
     launches = phase_serve(dev)
     launches.update(phase_paged_kv(dev, rows))
@@ -2489,6 +2683,7 @@ def main() -> int:
     log(json.dumps({"kernels": list(KERNELS)}))
     log(smi)
     log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"jd_delta": jd_rows, "jd_prefill": jd_prefill}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

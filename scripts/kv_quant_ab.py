@@ -104,7 +104,7 @@ def build(variants: dict) -> dict:
         h = ctypes.CDLL(str(lib))
         for fn in ("kv_quant_launch", "kv_dequant_launch"):
             f = getattr(h, fn)
-            f.argtypes = _build.SIGNATURES[fn]
+            f.argtypes = _build.SIGNATURES["kv_quant"][fn]
             f.restype = ctypes.c_int
         libs[name] = h
     return libs

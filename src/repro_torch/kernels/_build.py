@@ -1,12 +1,15 @@
 """Build and load the port's CUDA kernels.
 
-The ``csrc/*.cu`` sources are compiled with ``nvcc`` for ``sm_90a`` into
-one shared library with a plain C interface, loaded with ``ctypes`` (no
-PyTorch headers, so the build takes seconds).  Each source compiles in its
-own ``nvcc`` process, all started together, then one link.  The build runs
-at first use, writes under ``build/kernels/`` at the repository root (or
-``$REPRO_TORCH_BUILD_DIR``), and is keyed by a hash of the sources and
-flags, so an unchanged tree reuses its library.
+Each ``csrc/<name>.cu`` source is compiled with ``nvcc`` for ``sm_90a``
+into a shared library of its own, ``<name>``, with a plain C interface,
+loaded with ``ctypes`` (no PyTorch headers, so a source builds in
+seconds).  A library is built at first use, so a path builds only the
+sources whose kernels it launches (a prefill only ``jd_delta.cu``, not
+the minutes that ``decode_attention.cu`` takes); :func:`build` builds
+several at once, one ``nvcc`` process a source, all started together.
+Libraries are written under ``build/kernels/`` at the repository root (or
+``$REPRO_TORCH_BUILD_DIR``), each keyed by a hash of its source, the
+headers and the flags, so an unchanged source reuses its library.
 
 ``-Xptxas -v`` is always on; :data:`BUILD_LOG` keeps ptxas' register,
 shared-memory and spill lines of the last build.
@@ -21,6 +24,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+from typing import Dict, Optional, Sequence
 
 import torch
 from torch.distributed.tensor import DTensor
@@ -35,7 +39,7 @@ NVCC_FLAGS = ["-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 DT_F32, DT_BF16, DT_I8 = 0, 1, 2
 
 BUILD_LOG: str = ""
-_LIB = None
+_LIBS = {}
 _LOCK = threading.Lock()
 
 _P = ctypes.c_void_p
@@ -43,24 +47,33 @@ _I = ctypes.c_int
 _I64 = ctypes.c_int64
 _F = ctypes.c_float
 
-# C entry points and their argument types; every one returns a cudaError_t
+# C entry points by library (csrc/<library>.cu) and their argument types;
+# every one returns a cudaError_t
 SIGNATURES = {
-    "flash_decode_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                            _I64, _I64, _I64, _I64, _F, _I, _I, _P, _I, _I,
-                            _P, _P, _I, _P],
-    "fused_decode_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _I,
-                            _I, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I,
-                            _I64, _I64, _I64, _I64, _F, _I, _I, _P, _I, _I,
-                            _P, _P, _I, _P],
-    "adapter_quant_launch": [_P, _I, _P, _P, _I64, _I, _I, _I, _F, _P],
-    "adapter_dequant_group_launch": [_P, _I, _I, _P],
-    "sgmv_shrink_launch": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _P],
-    "sgmv_expand_launch": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _P],
-    "sigma_bmm_launch": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _P],
-    "jd_shrink_scale_launch": [_P, _I, _P, _I, _P, _P, _I, _P, _I, _I, _I,
-                               _I, _P],
-    "kv_quant_launch": [_P, _I, _P, _P, _I, _I, _I, _P],
-    "kv_dequant_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "decode_attention": {
+        "flash_decode_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                _I, _I64, _I64, _I64, _I64, _F, _I, _I, _P,
+                                _I, _I, _P, _P, _I, _P],
+        "fused_decode_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P,
+                                _I, _I, _P, _I, _P, _I, _P, _P, _I, _I, _I,
+                                _I, _I, _I64, _I64, _I64, _I64, _F, _I, _I,
+                                _P, _I, _I, _P, _P, _I, _P]},
+    "adapter_quant": {
+        "adapter_quant_launch": [_P, _I, _P, _P, _I64, _I, _I, _I, _F, _P],
+        "adapter_dequant_group_launch": [_P, _I, _I, _P]},
+    "sgmv": {
+        "sgmv_shrink_launch": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _P],
+        "sgmv_expand_launch": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _P],
+        "sigma_bmm_launch": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _P]},
+    "jd_apply": {
+        "jd_shrink_scale_launch": [_P, _I, _P, _I, _P, _P, _I, _P, _I, _I,
+                                   _I, _I, _P]},
+    "kv_quant": {
+        "kv_quant_launch": [_P, _I, _P, _P, _I, _I, _I, _P],
+        "kv_dequant_launch": [_P, _P, _P, _I, _I, _I, _I, _P]},
+    "jd_delta": {
+        "jd_delta_launch": [_P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _I, _F,
+                            _P]},
 }
 
 
@@ -78,70 +91,72 @@ def build_dir() -> pathlib.Path:
     return pathlib.Path(env) if env else REPO_ROOT / "build" / "kernels"
 
 
-def _sources():
-    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
-
-
-def _digest() -> str:
+def _digest(name: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    cus, cuhs = _sources()
-    for p in cus + cuhs:
+    for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
 
 
-def build(force: bool = False) -> pathlib.Path:
-    """Compile the kernels (unless a library for these sources exists) and
-    return the library's path."""
+def build(force: bool = False, names: Optional[Sequence[str]] = None
+          ) -> Dict[str, pathlib.Path]:
+    """Compile the libraries ``names`` (every one by default) that have no
+    library for their sources yet, all at once, and return each one's
+    path."""
     global BUILD_LOG
     out_dir = build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
-    lib_path = out_dir / f"librepro_torch_kernels_{_digest()}.so"
-    if lib_path.exists() and not force:
-        return lib_path
+    paths = {n: out_dir / f"librepro_torch_{n}_{_digest(n)}.so"
+             for n in (names or SIGNATURES)}
+    todo = [n for n, p in paths.items() if force or not p.exists()]
+    if not todo:
+        return paths
     nvcc = nvcc_path()
-    cus, _ = _sources()
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
-        procs = []
-        for src in cus:
-            obj = pathlib.Path(tmp) / (src.stem + ".o")
-            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
-            procs.append((src, obj, subprocess.Popen(
+        procs = {}
+        for n in todo:
+            obj = pathlib.Path(tmp) / f"{n}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(CSRC / f"{n}.cu"), "-o",
+                   str(obj)]
+            procs[n] = (obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True)))
+                text=True))
         logs, failed = [], []
-        for src, _, p in procs:
+        for n, (_, p) in procs.items():
             out, _ = p.communicate()
-            logs.append(f"== {src.name}\n{out}")
+            logs.append(f"== {n}.cu\n{out}")
             if p.returncode != 0:
-                failed.append(src.name)
+                failed.append(f"{n}.cu")
         BUILD_LOG = "\n".join(logs)
         if failed:
             raise RuntimeError(f"nvcc failed on {failed}:\n{BUILD_LOG}")
-        tmp_lib = pathlib.Path(tmp) / lib_path.name
-        link = subprocess.run(
-            [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp_lib),
-             *[str(o) for _, o, _ in procs]],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        if link.returncode != 0:
-            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
-        os.replace(tmp_lib, lib_path)
-    return lib_path
+        for n, (obj, _) in procs.items():
+            tmp_lib = pathlib.Path(tmp) / paths[n].name
+            link = subprocess.run(
+                [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp_lib), str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            if link.returncode != 0:
+                raise RuntimeError(f"nvcc link of {n} failed:\n"
+                                   f"{link.stdout}")
+            os.replace(tmp_lib, paths[n])
+    return paths
 
 
-def lib():
-    """The loaded kernel library (built at first use)."""
-    global _LIB
+def lib(name: str):
+    """The loaded library of ``csrc/<name>.cu`` (built at first use)."""
+    handle = _LIBS.get(name)
+    if handle is not None:
+        return handle
     with _LOCK:
-        if _LIB is None:
-            handle = ctypes.CDLL(str(build()))
-            for name, argtypes in SIGNATURES.items():
-                fn = getattr(handle, name)
+        if name not in _LIBS:
+            handle = ctypes.CDLL(str(build(names=[name])[name]))
+            for entry, argtypes in SIGNATURES[name].items():
+                fn = getattr(handle, entry)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
-            _LIB = handle
-    return _LIB
+            _LIBS[name] = handle
+    return _LIBS[name]
 
 
 def refuse(name: str, *args, meta: bool = True) -> None:

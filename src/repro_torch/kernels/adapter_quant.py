@@ -81,7 +81,7 @@ def adapter_quantize(w: torch.Tensor, *, axis: int = -1):
     q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
     s_shape = lead + ((R, 1) if rows else (1, C))
     scale = torch.empty(s_shape, dtype=torch.float32, device=w.device)
-    err = _build.lib().adapter_quant_launch(
+    err = _build.lib("adapter_quant").adapter_quant_launch(
         w.data_ptr(), _build.dtype_code(w.dtype), q.data_ptr(),
         scale.data_ptr(), N, R, C, int(rows), float(QMAX[8]),
         _build.stream_ptr(w.device))
@@ -151,7 +151,7 @@ def adapter_dequantize_group(pairs: Sequence[Tuple[torch.Tensor,
         if out.numel():
             table.append(_DeqBank(q.data_ptr(), s.data_ptr(),
                                   out.data_ptr(), N, R, C, int(rows), 0))
-    lib = _build.lib()
+    lib = _build.lib("adapter_quant")
     code, stream = _build.dtype_code(out_dtype), _build.stream_ptr(device)
     for i in range(0, len(table), GROUP_CAP):
         part = table[i:i + GROUP_CAP]

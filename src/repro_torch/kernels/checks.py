@@ -47,6 +47,12 @@ it states, and returns the worst error.  The tolerances:
   an f32 sum that lands on the other side of a bf16 rounding in an earlier
   stage moves the output by up to 2**-8 of that stage's term, carried
   through the expand.
+* ``jd_delta_`` (the delta of a projection group added in place) against
+  ``models/lora.py``'s plain einsums on the card, whose casts it repeats:
+  :data:`JD_DELTA_TOL`, the same bound as the composed chain's, with M the
+  delta's terms on absolute values through Sigma, ``(|x V| |Sigma|)
+  |U|^T |scaling|`` (its 2**-7 * |ref| also covers the final sum with y
+  rounding the other way, one bf16 ulp of the output).
 """
 from __future__ import annotations
 
@@ -62,6 +68,7 @@ from .flash_decode import flash_decode, flash_decode_paged
 from .fused_decode import (fused_decode_jd, fused_decode_jd_paged,
                            fused_decode_lora, fused_decode_lora_paged)
 from .jd_apply import jd_shrink_scale
+from .jd_delta import jd_delta_
 from .kv_quant import ERROR_BOUND, kv_dequantize, kv_quantize
 from .sgmv import sgmv_expand, sgmv_shrink, sigma_bmm
 # the H100 SXM data sheet's HBM rate and f32 rate outside the tensor cores
@@ -83,6 +90,8 @@ KV_QUANT_KERNEL, KV_DEQUANT_KERNEL = "kv_quantize_kernel", "kv_dequantize_kernel
 # or sgmv_expand_kernel: each prefix names both
 SHRINK_KERNEL = "grouped_shrink"
 SGMV_EXPAND_KERNEL, SIGMA_KERNEL = "sgmv_expand", "sigma_bmm_kernel"
+# jd_delta_ launches jd_delta_shrink_kernel and jd_delta_expand_kernel
+JD_DELTA_KERNEL = "jd_delta_"
 # tests/test_kernels.py's sweeps: (T, d_in, d_out, n, r, tile)
 SGMV_SWEEP = [(32, 128, 64, 3, 8, 8), (64, 256, 192, 5, 16, 8),
               (128, 512, 256, 2, 32, 16), (16, 64, 128, 7, 4, 8)]
@@ -835,3 +844,84 @@ def chain_agreement(got, plain) -> Dict:
     err = (got.float() - want.float()).abs()
     return {"agreement": float((err <= _chain_tol(want, M)).float().mean()),
             "max_abs_err": float(err.max())}
+
+
+# -- jd_delta_: a projection group's delta, one adapter a sequence ----------
+
+JD_DELTA_TOL = ("2**-7*|ref| + 2**-6*M + 1e-6, M = (|x V| |Sigma|) |U|^T "
+                "|scaling|, ref lora.apply's einsums on the card")
+
+
+def jd_delta_case(B, S, d_in, d_outs, k, n, r, gen, device, *,
+                  diag=False, bank_dtype=torch.bfloat16, ids=None) -> Dict:
+    """x (B, S, d_in) and an output (B, S, d_out) for each of ``d_outs``,
+    bf16 at std 1 (a normed layer input, a projection's output), and each
+    target's jd banks at 1/sqrt(fan-in) as the benchmark draws them: U and
+    Sigma 1/sqrt(r), V 1/sqrt(d_in); adapter i in cluster i % k; ``ids``
+    by default B adapters spread over the clusters."""
+    bf = torch.bfloat16
+    x = _randn((B, S, d_in), gen, device, bf)
+    ys = [_randn((B, S, do), gen, device, bf) for do in d_outs]
+    banks = [{"U": _randn((k, do, r), gen, device, bank_dtype, r ** -0.5),
+              "V": _randn((k, d_in, r), gen, device, bank_dtype,
+                          d_in ** -0.5),
+              "sigma": _randn((n, r) if diag else (n, r, r), gen, device,
+                              bank_dtype, r ** -0.5),
+              "cluster_of": torch.arange(n, dtype=torch.int32,
+                                         device=device) % k}
+             for do in d_outs]
+    if ids is None:
+        ids = (torch.arange(B, device=device) * 7 + 3) % n
+    return {"x": x, "ys": ys, "banks": banks, "ids": ids}
+
+
+def jd_delta_plain(case, scaling: float = 1.0):
+    """``lora.apply``'s einsum path for each target (new tensors)."""
+    from ..models.lora import LoRAContext, plain
+    ctx = LoRAContext("jd", None, case["ids"], scaling)
+    return [plain(ctx, p, case["x"], y)
+            for y, p in zip(case["ys"], case["banks"])]
+
+
+def _jd_delta_terms(case, p, scaling: float) -> torch.Tensor:
+    """(|x V| |Sigma|) |U|^T |scaling| per output, from the plain casts."""
+    x, ids = case["x"], case["ids"]
+    cid = p["cluster_of"][ids].long()
+    t = torch.einsum("bsd,bdr->bsr", x, p["V"][cid].to(x.dtype)).float()
+    sig = p["sigma"][ids].to(x.dtype).float().abs()
+    t = t.abs() * sig[:, None] if sig.ndim == 2 else torch.einsum(
+        "bsr,brq->bsq", t.abs(), sig)
+    return abs(scaling) * torch.einsum(
+        "bsq,boq->bso", t, p["U"][cid].to(x.dtype).float().abs())
+
+
+def check_jd_delta(case, scaling: float = 1.0) -> Dict:
+    """The kernels on copies of the outputs against the plain path: the
+    worst error over the targets, and the share of outputs equal bit for
+    bit."""
+    want = jd_delta_plain(case, scaling)
+    ys = [y.clone() for y in case["ys"]]
+    got = jd_delta_(case["x"], ys, case["banks"], case["ids"], scaling)
+    err, same, total = 0.0, 0, 0
+    for i, (g, w, p) in enumerate(zip(got, want, case["banks"])):
+        M = _jd_delta_terms(case, p, scaling).reshape(w.shape)
+        tol = 2.0 ** -7 * w.float().abs() + 2.0 ** -6 * M + 1e-6
+        err = max(err, _assert_close(f"jd_delta_ target {i}", g, w, tol))
+        same += int((g == w).sum())
+        total += w.numel()
+    return {"max_abs_err": err, "equal_share": same / total,
+            "tolerance": JD_DELTA_TOL}
+
+
+def jd_delta_bytes(case) -> int:
+    """x read once, each y read and written once, and the banks' rows the
+    sequences reach (their clusters' U and V, their Sigma), once."""
+    x, ids = case["x"], case["ids"].long()
+    total = _nbytes(x) + sum(2 * _nbytes(y) for y in case["ys"])
+    for p in case["banks"]:
+        cids = p["cluster_of"][ids].long().unique()
+        for name in ("U", "V"):
+            total += _nbytes(p[name][cids])
+        total += _nbytes(p["sigma"][ids.unique()])
+    return total
+

@@ -294,7 +294,7 @@ def _launch(q, k, v, kv_len, dims, addr, name, scale=None):
     l = torch.empty((B, Kv, G, 1), dtype=torch.float32, device=q.device)
     m = torch.empty((B, Kv, G, 1), dtype=torch.float32, device=q.device)
     ws = split_workspace(B, Kv, G, hd, S, q.device)
-    err = _build.lib().flash_decode_launch(
+    err = _build.lib("decode_attention").flash_decode_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
         out.data_ptr(), l.data_ptr(), m.data_ptr(), B, H, Kv, hd, S,
         k_sb, k_ss, v_sb, v_ss, hd ** -0.5 if scale is None else scale,

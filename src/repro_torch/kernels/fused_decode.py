@@ -122,7 +122,7 @@ def _launch(q, k, v, kv_len, ids, cluster_of, bank, bank_scale, sigma, w,
     out = torch.empty_like(q)
     delta = torch.empty((B, d_out), dtype=torch.float32, device=q.device)
     ws = split_workspace(B, Kv, H // Kv, hd, S, q.device)
-    err = _build.lib().fused_decode_launch(
+    err = _build.lib("decode_attention").fused_decode_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
         ids.data_ptr(), None if cluster_of is None else cluster_of.data_ptr(),
         bank.data_ptr(), _build.dtype_code(bank.dtype), bank_scale.data_ptr(),

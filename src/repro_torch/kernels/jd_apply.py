@@ -57,7 +57,7 @@ def jd_shrink_scale(x: torch.Tensor, V: torch.Tensor,
             raise ValueError(f"sigma_tok must be ({T}, {r})")
     bt = check_tiles(tile_cids, T, block_t, dev)
     out = torch.empty((T, r), dtype=torch.float32, device=dev)
-    err = _build.lib().jd_shrink_scale_launch(
+    err = _build.lib("jd_apply").jd_shrink_scale_launch(
         x.data_ptr(), _build.dtype_code(x.dtype), V.data_ptr(),
         _build.dtype_code(V.dtype), tile_cids.data_ptr(),
         None if sigma_tok is None else sigma_tok.data_ptr(),

@@ -75,7 +75,7 @@ def kv_quantize(x: torch.Tensor, bits: int = 8):
     packed = torch.empty((rows, C), device=x.device,
                          dtype=torch.int8 if bits == 8 else torch.uint8)
     scales = torch.empty((1, C), dtype=torch.float32, device=x.device)
-    err = _build.lib().kv_quant_launch(
+    err = _build.lib("kv_quant").kv_quant_launch(
         x.data_ptr(), _build.dtype_code(x.dtype), packed.data_ptr(),
         scales.data_ptr(), T, C, bits, _build.stream_ptr(x.device))
     _build.check(err, "kv_quantize")
@@ -111,7 +111,7 @@ def kv_dequantize(packed: torch.Tensor, scales: torch.Tensor, bits: int = 8,
                              f"{packed.device}")
     T = rows if bits == 8 else 2 * rows
     out = torch.empty((T, C), dtype=out_dtype, device=packed.device)
-    err = _build.lib().kv_dequant_launch(
+    err = _build.lib("kv_quant").kv_dequant_launch(
         packed.data_ptr(), scales.data_ptr(), out.data_ptr(),
         _build.dtype_code(out_dtype), T, C, bits,
         _build.stream_ptr(packed.device))

@@ -293,6 +293,27 @@ def jd_apply_ref(x, U, V, sigma, cluster_of, ids) -> torch.Tensor:
     return torch.einsum("tq,toq->to", t, U[cid].float()).to(x.dtype)
 
 
+def jd_delta_ref(x, U, V, sigma, cluster_of, ids) -> torch.Tensor:
+    """The compressed delta with one adapter per sequence, in x's dtype
+    (the plain version of ``jd_delta.py``, and ``models/lora.py::apply``'s
+    mode "jd"): every stage in x's dtype, each bank cast to it first.
+
+    x: (B, S, d_in); U: (k, d_out, r); V: (k, d_in, r); sigma: (n, r, r)
+    full or (n, r) diag; cluster_of: (n,); ids: (B,) -> (B, S, d_out).
+    """
+    dt = x.dtype
+    cid = cluster_of[ids].long()             # (B,)
+    V = V[cid].to(dt)                        # (B, d_in, r)
+    U = U[cid].to(dt)                        # (B, d_out, r)
+    sig = sigma[ids].to(dt)                  # (B, r, r) or (B, r)
+    t = torch.einsum("bsd,bdr->bsr", x, V)
+    if sig.ndim == 2:                        # JD-Diag
+        t = t * sig[:, None, :]
+    else:                                    # JD-Full
+        t = torch.einsum("bsr,brq->bsq", t, sig)
+    return torch.einsum("bsr,bor->bso", t, U)
+
+
 def sigma_bmm_ref(t: torch.Tensor, sigma: torch.Tensor, ids: torch.Tensor
                   ) -> torch.Tensor:
     """t: (T, r) x sigma[ids]: per-token (r, r) matmul (JD-Full mid stage)."""

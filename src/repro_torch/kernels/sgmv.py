@@ -107,7 +107,7 @@ def sgmv_shrink(x: torch.Tensor, A: torch.Tensor, tile_ids: torch.Tensor, *,
     check_rank(r)
     bt = check_tiles(tile_ids, T, block_t, dev)
     out = torch.empty((T, r), dtype=torch.float32, device=dev)
-    err = _build.lib().sgmv_shrink_launch(
+    err = _build.lib("sgmv").sgmv_shrink_launch(
         x.data_ptr(), _build.dtype_code(x.dtype), A.data_ptr(),
         _build.dtype_code(A.dtype), tile_ids.data_ptr(), out.data_ptr(),
         tile_ids.shape[0], bt, d_in, r, _build.stream_ptr(dev))
@@ -134,7 +134,7 @@ def sgmv_expand(t: torch.Tensor, B: torch.Tensor, tile_ids: torch.Tensor, *,
     check_rank(r)
     bt = check_tiles(tile_ids, T, block_t, dev)
     out = torch.empty((T, d_out), dtype=t.dtype, device=dev)
-    err = _build.lib().sgmv_expand_launch(
+    err = _build.lib("sgmv").sgmv_expand_launch(
         t.data_ptr(), _build.dtype_code(t.dtype), B.data_ptr(),
         _build.dtype_code(B.dtype), tile_ids.data_ptr(), out.data_ptr(),
         tile_ids.shape[0], bt, r, d_out, _build.stream_ptr(dev))
@@ -163,7 +163,7 @@ def sigma_bmm(t: torch.Tensor, sigma: torch.Tensor, tile_ids: torch.Tensor,
     check_rank(r)
     bt = check_tiles(tile_ids, T, block_t, dev)
     out = torch.empty((T, r), dtype=t.dtype, device=dev)
-    err = _build.lib().sigma_bmm_launch(
+    err = _build.lib("sgmv").sigma_bmm_launch(
         t.data_ptr(), _build.dtype_code(t.dtype), sigma.data_ptr(),
         _build.dtype_code(sigma.dtype), tile_ids.data_ptr(), out.data_ptr(),
         tile_ids.shape[0], bt, r, _build.stream_ptr(dev))

@@ -110,9 +110,8 @@ def _qkv(p: Dict, x: torch.Tensor, cfg, lora_ctx):
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
     v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
     if lora_ctx is not None:
-        q = lora_mod.apply(lora_ctx, "q", x, q)
-        k = lora_mod.apply(lora_ctx, "k", x, k)
-        v = lora_mod.apply(lora_ctx, "v", x, v)
+        q, k, v = lora_mod.apply_group(lora_ctx, ("q", "k", "v"), x,
+                                       (q, k, v))
     if cfg.qkv_bias:
         q = q + p["bq"].to(q.dtype)
         k = k + p["bk"].to(k.dtype)

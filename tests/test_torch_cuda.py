@@ -18,6 +18,7 @@ from repro_torch.kernels import fused_decode as fu_mod
 from repro_torch.kernels import jd_apply as jd_mod
 from repro_torch.kernels import sgmv as sg_mod
 from repro_torch.kernels.flash_decode import flash_decode
+from repro_torch.kernels.jd_delta import jd_delta_
 
 pytestmark = pytest.mark.gpu
 
@@ -856,3 +857,274 @@ def test_paged_and_wire_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         kq.kv_dequantize(torch.zeros((16, 64), dtype=torch.int8,
                                      device=cuda),
                          torch.ones((1, 64), device=cuda), 4)
+
+
+# -- jd_delta_: a projection group's jd delta, added in place ----------------
+
+# Mistral-7B's projections: q/k/v read d_model, o reads the heads
+QKV_OUTS, O_OUTS = [4096, 1024, 1024], [4096]
+JD_SHAPES = [(1, 128), (1, 1020), (1, 4096), (1, 333), (8, 1)]
+
+
+@pytest.mark.parametrize("k", [1, 8])
+@pytest.mark.parametrize("diag", [False, True])
+@pytest.mark.parametrize("outs", [QKV_OUTS, O_OUTS], ids=["qkv", "o"])
+@pytest.mark.parametrize("B,S", JD_SHAPES)
+def test_jd_delta_matches_lora_plain(cuda, B, S, outs, diag, k):
+    """The kernels against lora.apply's einsums on the card, bf16, at
+    Mistral's widths; (8, 1) takes eight adapters over the clusters.
+    Tolerance: checks.JD_DELTA_TOL (a rank-r stage summed in another
+    order may round to the other bf16 neighbour)."""
+    from repro_torch.kernels import jd_delta as jdd
+    gen = torch.Generator(device=cuda).manual_seed(B * 7919 + S)
+    case = checks.jd_delta_case(B, S, 4096, outs, k, 1000, 16, gen, cuda,
+                                diag=diag)
+    before = jdd.LAUNCHES
+    r = checks.check_jd_delta(case)
+    assert jdd.LAUNCHES == before + 2
+    assert r["equal_share"] > 0.9
+
+
+@pytest.mark.parametrize("outs", [QKV_OUTS[1:], [520]], ids=["kv", "o"])
+@pytest.mark.parametrize("bank_dtype", [torch.bfloat16, torch.float32])
+def test_jd_delta_banks_and_scaling(cuda, bank_dtype, outs):
+    """f32 banks (the fused_q8 path's dequantized ones, rounded to bf16 as
+    the einsums' casts do), a group of two, a width that no 128 columns
+    divide, a scaling other than 1, int64 cluster ids."""
+    gen = torch.Generator(device=cuda).manual_seed(len(outs))
+    case = checks.jd_delta_case(2, 200, 4096, outs, 3, 50, 16, gen, cuda,
+                                bank_dtype=bank_dtype)
+    for p in case["banks"]:
+        p["cluster_of"] = p["cluster_of"].long()
+    checks.check_jd_delta(case, scaling=0.375)
+
+
+def test_jd_delta_writes_only_y_and_repeats(cuda):
+    """In place: the outputs returned are the tensors given, the memory
+    around them, x and the banks keep their bits, and a second run on the
+    same inputs gives the same bits."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    case = checks.jd_delta_case(1, 1020, 4096, QKV_OUTS, 8, 1000, 16, gen,
+                                cuda)
+    pad = 64
+    bufs, ys = [], []
+    for y in case["ys"]:
+        buf = torch.full((y.numel() + 2 * pad,), 7.0, dtype=y.dtype,
+                         device=cuda)
+        view = buf[pad:pad + y.numel()].view(y.shape)
+        view.copy_(y)
+        bufs.append(buf)
+        ys.append(view)
+    x0 = case["x"].clone()
+    banks0 = [{n: t.clone() for n, t in p.items()} for p in case["banks"]]
+    want = checks.jd_delta_plain(case)
+    got = jd_delta_(case["x"], ys, case["banks"], case["ids"])
+    for g, y, buf in zip(got, ys, bufs):
+        assert g is y
+        assert torch.all(buf[:pad] == 7.0) and torch.all(buf[-pad:] == 7.0)
+    assert torch.equal(case["x"], x0)
+    for p, p0 in zip(case["banks"], banks0):
+        assert all(torch.equal(p[n], p0[n]) for n in p)
+    again = [y.clone() for y in case["ys"]]
+    jd_delta_(case["x"], again, case["banks"], case["ids"])
+    for a, g, w in zip(again, got, want):
+        assert torch.equal(a, g)
+        assert (a.float() - w.float()).abs().max() < 0.1
+
+
+def test_jd_delta_refuses_what_the_kernels_do_not_take(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    case = checks.jd_delta_case(2, 40, 256, [64], 2, 9, 16, gen, cuda)
+    x, ys, banks, ids = (case[n] for n in ("x", "ys", "banks", "ids"))
+    with pytest.raises(ValueError):                     # f32 activations
+        jd_delta_(x.float(), ys, banks, ids)
+    with pytest.raises(ValueError):                     # rank 8
+        jd_delta_(x, ys, [{**banks[0], "U": banks[0]["U"][..., :8]}], ids)
+    with pytest.raises(ValueError):                     # ids on the CPU
+        jd_delta_(x, ys, banks, ids.cpu())
+    with pytest.raises(ValueError):                     # x not contiguous
+        jd_delta_(x.transpose(0, 1).contiguous().transpose(0, 1), ys,
+                  banks, ids)
+    with pytest.raises(ValueError):                     # four targets
+        jd_delta_(x, ys * 4, banks * 4, ids)
+    with pytest.raises(ValueError):                     # V of another width
+        jd_delta_(x, ys, [{**banks[0], "V": banks[0]["V"][:, :128]}], ids)
+    U = banks[0]["U"]
+    U1 = torch.empty(U.numel() + 1, dtype=U.dtype, device=cuda)[1:]
+    with pytest.raises(ValueError):                     # U off 16 bytes
+        jd_delta_(x, ys, [{**banks[0], "U": U1.view(U.shape).copy_(U)}],
+                  ids)
+
+
+def _shifted(t: torch.Tensor) -> torch.Tensor:
+    """A copy of ``t`` one element past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    return buf[1:].view(t.shape).copy_(t)
+
+
+@pytest.mark.parametrize("diag", [False, True])
+def test_jd_delta_takes_indices_and_sigma_off_16_bytes(cuda, diag):
+    """sigma, cluster_of and ids are read an element at a time: one
+    element past a 16-byte boundary they take the kernels (not the
+    einsums) and give the plain einsums' result."""
+    from repro_torch.kernels import jd_delta as jdd
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    case = checks.jd_delta_case(3, 70, 512, [64, 32], 3, 10, 16, gen, cuda,
+                                diag=diag, bank_dtype=torch.float32)
+    for p in case["banks"]:
+        for k in ("sigma", "cluster_of"):
+            p[k] = _shifted(p[k])
+    case["ids"] = _shifted(case["ids"].int())
+    assert jdd.takes(case["x"], case["ys"], case["banks"], case["ids"])
+    before = jdd.LAUNCHES
+    checks.check_jd_delta(case)
+    assert jdd.LAUNCHES == before + 2
+
+
+def _jd_setup(cuda, layers=2, n=40, k=4, seed=5, cluster_dtype=torch.int32):
+    """Mistral-7B at full width cut to ``layers`` layers, its weights and
+    jd bundles on q, k, v and o (bf16; adapter i in cluster i % k)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.param import init_params
+    cfg = dataclasses.replace(get_config("mistral-7b"), num_layers=layers)
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    params = init_params(tf.model_defs(cfg), gen, cuda)
+    r, hd, d = 16, cfg.resolved_head_dim, cfg.d_model
+    outs = {"q": cfg.num_heads * hd, "k": cfg.num_kv_heads * hd,
+            "v": cfg.num_kv_heads * hd, "o": d}
+    bundles = {"layers": {}}
+    for t, do in outs.items():
+        di = cfg.num_heads * hd if t == "o" else d
+        bundles["layers"][t] = {
+            "U": checks._randn((layers, k, do, r), gen, cuda, torch.bfloat16,
+                               r ** -0.5),
+            "V": checks._randn((layers, k, di, r), gen, cuda, torch.bfloat16,
+                               di ** -0.5),
+            "sigma": checks._randn((layers, n, r, r), gen, cuda,
+                                   torch.bfloat16, r ** -0.5),
+            "cluster_of": (torch.arange(n, device=cuda, dtype=cluster_dtype)
+                           % k).expand(layers, n).contiguous()}
+    return cfg, params, bundles
+
+
+def _rel(a, b) -> float:
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm())
+
+
+# a few bf16 roundings of adapter deltas that fall the other way, carried
+# through two layers: relative L2 errors of a bf16 ulp's order (2**-8),
+# far under the benchmark's limits on its reference (0.12-0.15)
+MODEL_REL_TOL = 2.0 ** -6
+
+
+@pytest.mark.parametrize("n,cluster_dtype", [
+    (40, torch.int32), (10, torch.int32), (9, torch.int64)])
+def test_prefill_launches_two_a_group(cuda, monkeypatch, n, cluster_dtype):
+    """A full prefill of one sequence: every adapter delta on the kernels
+    (4 launches a layer: q/k/v and o, two each), and the logits and K/V
+    those of the plain einsums within MODEL_REL_TOL.  With 10 int32 or 9
+    int64 cluster ids a layer, layer 1's slice of the stacked cluster_of
+    starts off a 16-byte boundary, which the kernels, reading it an element
+    at a time, take."""
+    from repro_torch import spans
+    from repro_torch.kernels import jd_delta as jdd
+    from repro_torch.models import lora
+    from repro_torch.models import transformer as tf
+    cfg, params, bundles = _jd_setup(cuda, n=n, cluster_dtype=cluster_dtype)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 1020), generator=gen,
+                           device=cuda)
+    ids = torch.tensor([n - 3], device=cuda)
+
+    def run():
+        cache = tf.init_cache(cfg, 1, 1024, device=cuda)
+        with torch.no_grad():
+            return tf.prefill(params, {"tokens": tokens}, cfg, cache,
+                              lora_params=bundles,
+                              lora_ctx_proto=lora.LoRAContext(
+                                  "jd", None, ids))
+    before = jdd.LAUNCHES
+    spans.start()
+    logits, cache = run()
+    counters = spans.take()["counters"]
+    assert jdd.LAUNCHES == before + 4 * cfg.num_layers
+    assert counters == {"adapter_kernel": 4 * cfg.num_layers}
+    monkeypatch.setattr(jdd, "takes", lambda *a: False)
+    want, want_cache = run()
+    assert jdd.LAUNCHES == before + 4 * cfg.num_layers
+    assert _rel(logits, want) < MODEL_REL_TOL
+    for key in ("k", "v"):
+        assert _rel(cache[key], want_cache[key]) < MODEL_REL_TOL
+
+
+@pytest.mark.parametrize("decode_path", ["unfused", "fused", "fused_q8"])
+def test_decode_step_routes_qkv_to_the_kernels(cuda, monkeypatch,
+                                                decode_path):
+    """Eight slots with eight adapters over four clusters, one decode
+    step: the unfused step's q/k/v and o deltas (4 launches a layer), the
+    fused steps' q/k/v (2 a layer; o rides in the attention kernel; the
+    int8 banks dequantized to f32 first), the logits those of the plain
+    einsums within MODEL_REL_TOL."""
+    import numpy as np
+    from repro_torch.kernels import jd_delta as jdd
+    from repro_torch.serving.real_executor import RealModelExecutor
+    from repro_torch.serving.request import Request
+    cfg, params, bundles = _jd_setup(cuda)
+
+    def logits():
+        ex = RealModelExecutor(cfg, params, bundles, "jd", max_batch=8,
+                               s_max=160, decode_path=decode_path,
+                               device=cuda)
+        for slot in range(8):
+            ex.prefill_request(Request(rid=slot, adapter_id=5 * slot + 1,
+                                       prompt_len=40 + slot,
+                                       max_new_tokens=4),
+                               np.random.default_rng(slot).integers(
+                                   0, cfg.vocab_size, 40 + slot))
+        before = jdd.LAUNCHES
+        out = ex.decode_logits()
+        return out, jdd.LAUNCHES - before
+    got, launches = logits()
+    per_layer = 4 if decode_path == "unfused" else 2
+    assert launches == per_layer * cfg.num_layers
+    monkeypatch.setattr(jdd, "takes", lambda *a: False)
+    want, none = logits()
+    assert none == 0
+    assert _rel(got, want) < MODEL_REL_TOL
+
+
+def test_lora_routes_on_the_card(cuda):
+    """On the card only mode jd in bf16 without a gradient takes the
+    kernels: batched, a gradient, f32 activations take the einsums."""
+    from repro_torch import spans
+    from repro_torch.models import lora
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    case = checks.jd_delta_case(2, 24, 256, [64, 32, 32], 2, 9, 16, gen,
+                                cuda)
+    x, ys, banks, ids = (case[n] for n in ("x", "ys", "banks", "ids"))
+    ctx = lora.LoRAContext("jd", dict(zip("qkv", banks)), ids, 0.5)
+
+    def counted(fn):
+        spans.start()
+        fn()
+        return spans.take()["counters"]
+    with torch.no_grad():
+        assert counted(lambda: lora.apply_group(
+            ctx, ("q", "k", "v"), x, [y.clone() for y in ys])) == {
+            "adapter_kernel": 3}
+        assert counted(lambda: lora.apply_group(
+            ctx, ("q", "k", "v"), x.float(), [y.float() for y in ys])) == {
+            "adapter_plain": 3}
+    xg = x.clone().requires_grad_()
+    assert counted(lambda: lora.apply_group(
+        ctx, ("q", "k", "v"), xg, [y.clone() for y in ys])) == {
+        "adapter_plain": 3}
+    A = checks._randn((9, 16, 256), gen, cuda, torch.bfloat16, 0.05)
+    Bm = checks._randn((9, 64, 16), gen, cuda, torch.bfloat16, 0.05)
+    with torch.no_grad():
+        assert counted(lambda: lora.apply(
+            lora.LoRAContext("batched", {"q": {"A": A, "B": Bm}}, ids),
+            "q", x, ys[0].clone())) == {"adapter_plain": 1}

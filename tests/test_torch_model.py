@@ -258,6 +258,152 @@ def test_lora_apply_matches_jax(mode):
                                    torch.from_numpy(y)), torch.from_numpy(y))
 
 
+
+def _jd_group(seed=5, B=2, S=3, d=16, r=4, n=3, k=2, dtype=torch.float32,
+              diag=False):
+    """x, q/k/v outputs and their jd banks (numpy draws), ids."""
+    rng = np.random.default_rng(seed)
+
+    def t(shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dtype)
+    outs = {"q": 24, "k": 8, "v": 8}
+    banks = {name: {"U": t((k, do, r)), "V": t((k, d, r)),
+                    "sigma": t((n, r) if diag else (n, r, r)),
+                    "cluster_of": torch.from_numpy(
+                        rng.integers(0, k, n).astype(np.int32))}
+             for name, do in outs.items()}
+    ys = tuple(t((B, S, do)) for do in outs.values())
+    ids = torch.from_numpy(rng.integers(0, n, B)).long()
+    return t((B, S, d)), ys, banks, ids
+
+
+def _counted(fn):
+    """fn()'s result and the recorder's counters over it."""
+    from repro_torch import spans
+    spans.start()
+    try:
+        out = fn()
+    finally:
+        taken = spans.take()
+    return out, taken["counters"]
+
+
+@pytest.mark.parametrize("diag", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lora_group_on_the_cpu_is_the_plain_path(dtype, diag):
+    """A group on the CPU runs the plain einsums target by target: the same
+    bits as three single calls, no kernel launch, counted as plain."""
+    from repro_torch.kernels import jd_delta
+    from repro_torch.models import lora as tlora
+    x, ys, banks, ids = _jd_group(dtype=dtype, diag=diag)
+    ctx = TCtx("jd", banks, ids, 0.5)
+    before = [y.clone() for y in ys]
+    launches = jd_delta.LAUNCHES
+    got, counters = _counted(
+        lambda: tlora.apply_group(ctx, ("q", "k", "v"), x, ys))
+    assert counters == {"adapter_plain": 3}
+    assert jd_delta.LAUNCHES == launches
+    for name, y, y0, g in zip("qkv", ys, before, got):
+        assert torch.equal(y, y0)              # the plain path copies
+        assert torch.equal(g, tlora.apply(ctx, name, x, y))
+    assert not jd_delta.takes(x, ys, list(banks.values()), ids)
+
+
+def test_lora_group_skips_absent_targets_and_counts_them_not():
+    from repro_torch.models import lora as tlora
+    x, ys, banks, ids = _jd_group()
+    ctx = TCtx("jd", {"k": banks["k"]}, ids, 1.0)
+    got, counters = _counted(
+        lambda: tlora.apply_group(ctx, ("q", "k", "v"), x, ys))
+    assert counters == {"adapter_plain": 1}
+    assert got[0] is ys[0] and got[2] is ys[2]
+    assert torch.equal(got[1], tlora.apply(ctx, "k", x, ys[1]))
+    _, counters = _counted(lambda: tlora.apply_group(
+        TCtx("jd", {"o": banks["q"]}, ids), ("q", "k", "v"), x, ys))
+    assert counters == {}
+
+
+@pytest.mark.parametrize("mode", ["batched", "single"])
+def test_lora_other_modes_take_the_plain_path(mode):
+    """``batched`` serving and ``single`` training (with its gradient) are
+    the einsums as before, counted as plain."""
+    from repro_torch.models import lora as tlora
+    x, ys, _, ids = _jd_group()
+    rng = np.random.default_rng(7)
+    if mode == "batched":
+        p = {"A": torch.from_numpy(rng.standard_normal((3, 4, 16))).float(),
+             "B": torch.from_numpy(rng.standard_normal((3, 24, 4))).float()}
+    else:
+        p = {"a": torch.from_numpy(rng.standard_normal((4, 16))).float()
+             .requires_grad_(),
+             "b": torch.from_numpy(rng.standard_normal((24, 4))).float()
+             .requires_grad_()}
+    got, counters = _counted(lambda: tlora.apply_group(
+        TCtx(mode, {"q": p}, ids, 0.5), ("q",), x, ys[:1])[0])
+    assert counters == {"adapter_plain": 1}
+    if mode == "single":
+        got.sum().backward()
+        assert p["a"].grad is not None and p["b"].grad is not None
+
+
+def test_lora_jd_on_meta_takes_the_plain_path():
+    """The dry run's meta tensors go through the einsums (shapes only)."""
+    from repro_torch.kernels import jd_delta
+    from repro_torch.models import lora as tlora
+    x, ys, banks, ids = _jd_group(dtype=torch.bfloat16)
+    meta = {n: {k: v.to("meta") for k, v in b.items()}
+            for n, b in banks.items()}
+    xm, ysm = x.to("meta"), tuple(y.to("meta") for y in ys)
+    got, counters = _counted(lambda: tlora.apply_group(
+        TCtx("jd", meta, ids.to("meta")), ("q", "k", "v"), xm, ysm))
+    assert counters == {"adapter_plain": 3}
+    assert [g.shape for g in got] == [y.shape for y in ys]
+    assert all(g.device.type == "meta" for g in got)
+    assert not jd_delta.takes(xm, ysm, list(meta.values()),
+                              ids.to("meta"))
+
+
+def test_lora_jd_on_dtensors_takes_the_plain_path():
+    """DTensors (the sharded steps) go through the einsums, on a fake
+    process group in this process, and equal the plain tensors' result."""
+    from torch.distributed.tensor import Replicate, distribute_tensor
+    from repro_torch.launch import dryrun
+    from repro_torch.models import lora as tlora
+    x, ys, banks, ids = _jd_group()
+    want = tlora.apply_group(TCtx("jd", banks, ids, 0.5), ("q", "k", "v"),
+                             x, ys)
+    with dryrun.fake_group(dryrun._mesh("1x4")) as mesh:
+        dm = mesh.device_mesh
+
+        def d(t):
+            return distribute_tensor(t, dm, [Replicate()] * dm.ndim)
+        dbanks = {n: {k: d(v) for k, v in b.items()}
+                  for n, b in banks.items()}
+        got, counters = _counted(lambda: tlora.apply_group(
+            TCtx("jd", dbanks, d(ids), 0.5), ("q", "k", "v"), d(x),
+            tuple(d(y) for y in ys)))
+        got = [g.to_local() for g in got]
+    assert counters == {"adapter_plain": 3}
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("diag", [False, True])
+def test_jd_delta_plain_version_adds_in_place(diag):
+    """The kernel wrapper's CPU branch (its plain version) adds the same
+    bits as ``lora.apply`` into the outputs it was given."""
+    from repro_torch.kernels import jd_delta
+    from repro_torch.models import lora as tlora
+    x, ys, banks, ids = _jd_group(dtype=torch.bfloat16, diag=diag)
+    ctx = TCtx("jd", banks, ids, 0.5)
+    want = [tlora.apply(ctx, n, x, y) for n, y in zip("qkv", ys)]
+    got = jd_delta.jd_delta_(x, list(ys), [banks[n] for n in "qkv"], ids,
+                             0.5)
+    for g, y, w in zip(got, ys, want):
+        assert g is y and torch.equal(y, w)
+
+
 if __name__ == "__main__":
     # child process of the bf16_refs fixture: write the bf16 references
     np.savez(sys.argv[1], **{

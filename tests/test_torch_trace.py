@@ -144,7 +144,10 @@ def test_self_times_add_up_to_the_root(setup):
 
 
 def test_prompt_tokens_counted(setup):
-    assert _traced_prefill(setup)["counters"] == {"prompt_tokens": PROMPT}
+    # beside the tokens, the adapter deltas by the path that ran them: on
+    # the CPU every target of every layer on the einsums
+    assert _traced_prefill(setup)["counters"] == {
+        "prompt_tokens": PROMPT, "adapter_plain": LAYERS * len(TARGETS)}
 
 
 def test_clock_fit_is_monotonic_and_on_the_system_clock():
